@@ -8,17 +8,26 @@ printing one JSON line:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles every hand-written kernel of the path (``csrc/*.cu``)
    with nvcc, one process per source, all started together;
-3. dfd: the DFD kernel against its plain PyTorch version on the card, at
-   the shot stage's chunk shape [257, 50, 89] and at [12, 40, 60], with and
-   without ``subpixel`` (max_abs_err <= 1e-3), and both timed;
+3. dfd: the DFD kernel against its plain PyTorch version on the card
+   (max_abs_err <= 1e-3), with and without ``subpixel``, at the shot
+   stage's chunk shapes [257, 50, 89] (16:9) and [257, 50, 67] (4:3), at
+   [12, 40, 60], at [65, 144, 256] (``Shot(height=144)``, frames cut into
+   row bands), at [1025, 36, 64] (several pairs per CTA) and at
+   [5, 1080, 1920] (column tiles), and through the run-time-parameter
+   instance (radius=2, block=4); two launches on the same input must be
+   bit-identical.  At [257, 50, 89] it times the kernel (100 launches in one
+   CUDA graph, replayed), the wrapper (CUDA events around back-to-back
+   calls, and the host's time per call) and the plain version;
 4. shot: ``Shot`` on a 1280x720 synthetic episode (10 shots x 32 frames, so
    the 256-frame chunks carry a frame across their edge); the boundaries
-   must sit at the true cuts, and match a CPU run of the port;
+   must sit at the true cuts, and match a CPU run of the port; then
+   ``Shot(height=144)``, whose boundaries must match a CPU run;
 5. detect: ``FaceDetector`` with the packaged detector and refiner on those
    frames in batches of 32; recall >= 0.9 at IoU >= 0.5, and on 2 frames the
    card's float32 boxes match the CPU's (same count, IoU >= 0.9);
-6. kernels: per kernel its launches on the main path (shot + detect, the
-   counts reset just before), error, times and bound.
+6. kernels: per kernel its launches on the main path (both shot runs and
+   detect, the counts reset just before), error, times, bound, and the
+   registers, spills and shared memory ptxas reports for each instance.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without printing it.
@@ -27,6 +36,7 @@ raises, so the script exits non-zero without printing it.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -34,7 +44,9 @@ import time
 import numpy as np
 
 SEED = 7
-DFD_SHAPES = [(257, 50, 89), (12, 40, 60)]
+DFD_SHAPES = [(257, 50, 89), (257, 50, 67), (12, 40, 60), (65, 144, 256),
+              (1025, 36, 64), (5, 1080, 1920)]
+RUNTIME_INSTANCE = {"radius": 2, "block": 4}
 DFD_TOL = 1e-3
 # one H100 SXM (NVIDIA data sheet): HBM bytes/s and f32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -65,6 +77,66 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, launches: int = 100, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``launches`` calls captured in one
+    CUDA graph, replayed ``replays`` times between CUDA events, so the
+    host's cost per call is not in it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, replays) / launches
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host time per call of ``fn`` (enqueue only), in microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, spills and static shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log, by readable name."""
+    report, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            inst = re.search(r"dfd_kernelILi(\d+)ELi(\d+)ELb([01])E", entry.group(1))
+            if inst:
+                r, b, sub = inst.groups()
+                size = "run-time" if b == "0" else f"radius={r},block={b}"
+                name = f"dfd_kernel<{size},subpixel={bool(int(sub))}>"
+            else:
+                name = re.sub(r"^_ZN.*?\d+(dfd_\w+?)E.*$", r"\1", entry.group(1))
+            report[name] = {}
+            continue
+        spill = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if spill and name:
+            report[name].update(stack_frame=int(spill.group(1)),
+                                spill_stores=int(spill.group(2)),
+                                spill_loads=int(spill.group(3)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[name].update(registers=int(used.group(1)),
+                                static_smem=int(smem.group(1)) if smem else 0)
+    return report
 
 
 def dfd_work(T: int, H: int, W: int, radius: int = 3, block: int = 5,
@@ -115,47 +187,60 @@ def phase_build():
 
     t0 = time.perf_counter()
     cuda_build.build(["dfd"])
+    ptxas = ptxas_report(cuda_build.log_path("dfd").read_text())
+    check(any(k.startswith("dfd_kernel<radius=3") for k in ptxas),
+          "ptxas reports the dfd kernel")
     emit({"phase": "build", "kernels": ["dfd"],
-          "seconds": time.perf_counter() - t0})
+          "seconds": time.perf_counter() - t0, "ptxas": ptxas})
+    return ptxas
 
 
-def phase_dfd():
+def phase_dfd(ptxas: dict):
     import torch
 
     from pyannote_video_tpu_torch.ops.dfd import dfd_series, dfd_series_plain
 
     rng = np.random.default_rng(SEED)
+    runs = [(shape, {}) for shape in DFD_SHAPES]
+    runs.append((DFD_SHAPES[0], RUNTIME_INSTANCE))
     max_err, timing = 0.0, {}
-    for shape in DFD_SHAPES:
+    for shape, sizes in runs:
         gray = torch.from_numpy(
             rng.uniform(0, 255, shape).astype(np.float32)).cuda()
         for subpixel in (True, False):
-            out = dfd_series(gray, subpixel=subpixel)
-            ref = dfd_series_plain(gray, subpixel=subpixel)
+            out = dfd_series(gray, subpixel=subpixel, **sizes)
+            again = dfd_series(gray, subpixel=subpixel, **sizes)
+            ref = dfd_series_plain(gray, subpixel=subpixel, **sizes)
             torch.cuda.synchronize()
             check(out.shape == ref.shape == (shape[0] - 1,), f"dfd shape {shape}")
             check(bool(torch.isfinite(out).all()), f"dfd finite {shape}")
+            check(torch.equal(out, again), f"dfd {shape} {sizes} repeat launch")
             err = float((out - ref).abs().max())
-            emit({"phase": "dfd", "shape": list(shape), "subpixel": subpixel,
-                  "max_abs_err": err})
-            check(err <= DFD_TOL, f"dfd {shape} subpixel={subpixel} err {err}")
+            emit({"phase": "dfd", "shape": list(shape), **sizes,
+                  "subpixel": subpixel, "max_abs_err": err,
+                  "repeat_bit_identical": True})
+            check(err <= DFD_TOL, f"dfd {shape} {sizes} subpixel={subpixel} err {err}")
             max_err = max(max_err, err)
-        if shape == DFD_SHAPES[0]:
+        if shape == DFD_SHAPES[0] and not sizes:
             timing = {
-                "ms": cuda_ms(lambda: dfd_series(gray), 200),
+                "kernel_ms": graph_ms(lambda: dfd_series(gray)),
+                "wrapper_ms": cuda_ms(lambda: dfd_series(gray), 200),
+                "host_us_per_call": host_us(lambda: dfd_series(gray)),
                 "plain_ms": cuda_ms(lambda: dfd_series_plain(gray), 10),
             }
     nbytes, ops = dfd_work(*DFD_SHAPES[0])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    bound = max(t_bytes, t_ops)
     return {
         "name": "dfd", "route": "cuda",
         "source": "pyannote_video_tpu_torch/csrc/dfd.cu",
         "replaces": "pyannote_video_tpu/ops/dfd_pallas.py:48",
-        "max_abs_err": max_err, **timing, "kernel_ms": timing["ms"],
-        "bound_ms": max(t_bytes, t_ops),
+        "max_abs_err": max_err, "ms": timing["kernel_ms"], **timing,
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_share": bound / timing["kernel_ms"],
         "bound_shape": list(DFD_SHAPES[0]), "bytes": nbytes, "ops": ops,
-        "library_ms": None,
+        "library_ms": None, "ptxas": ptxas,
     }
 
 
@@ -206,6 +291,17 @@ def phase_shot(frames, fps, cuts):
           "loose_boundaries": len(loose), "seconds": seconds,
           "frames_per_s": len(frames) / seconds})
 
+    # 144x256 frames: more shared memory than a CTA has, were they staged
+    # whole
+    tall = [s.end for s in Shot(Video(frames, fps=fps), height=144,
+                                threshold=2.0, device="cuda")][:-1]
+    tall_cpu = [s.end for s in Shot(Video(frames, fps=fps), height=144,
+                                    threshold=2.0, device="cpu")][:-1]
+    check(tall == tall_cpu, f"height 144: CPU {tall_cpu} == card {tall}")
+    emit({"phase": "shot", "height": 144, "boundaries": len(tall),
+          "cuts": len(cuts), "cuts_within_1.5_frames": sum(
+              any(abs(c - g) <= 1.5 / fps for g in tall) for c in cuts)})
+
 
 def phase_detect(frames, gt):
     import torch
@@ -253,8 +349,7 @@ def main() -> int:
     from pyannote_video_tpu_torch.ops.dfd import dfd_series
 
     kind = phase_device()
-    phase_build()
-    dfd_row = phase_dfd()
+    dfd_row = phase_dfd(phase_build())
     frames, fps, cuts, gt = make_episode()
 
     # the main path: every launch count starts at 0 here

@@ -4,8 +4,10 @@ Each source compiles with ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``.  The build runs at
 first use, from the sources in the checkout, into ``build/kernels/`` at the
 repository root (listed in ``.gitignore``); a library newer than its source
-is reused.  Nothing here runs at import time: the CPU tests import every
-module of the package on machines without ``nvcc``.
+is reused.  ``ptxas``'s report (registers, spills, shared memory of each
+kernel) is kept beside each library as ``lib<name>.log``.  Nothing here runs
+at import time: the CPU tests import every module of the package on
+machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -39,6 +41,10 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
+
+
+def log_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.log"
 
 
 def _stale(name: str) -> bool:
@@ -67,6 +73,7 @@ def build(names: Iterable[str]) -> None:
             errors.append(f"nvcc failed for {name}.cu:\n{log}")
             tmp.unlink(missing_ok=True)
         else:
+            log_path(name).write_text(log)
             os.replace(tmp, library_path(name))
     if errors:
         raise RuntimeError("\n".join(errors))

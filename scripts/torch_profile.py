@@ -6,8 +6,10 @@ FILE]``.  It uses the same 1280x720 synthetic episode as ``chip_smoke.py``
 and ``torch.profiler`` (CUPTI) for device times:
 
 * dfd: the DFD kernel alone at the shot chunk shape [257, 50, 89], its mean
-  device time per launch beside the host wall time per call;
-* shot: one ``Shot`` run over the 320 frames;
+  device time per launch (every kernel named ``dfd_*``, the templated
+  instances included) beside the host wall time per call;
+* shot: one ``Shot`` run over the 320 frames, at the default height 50 and
+  at height 144 (frames the kernel cuts into row bands);
 * detect: ``FaceDetector.detect_batch`` over 4 batches of 32 frames.
 
 For each path: wall seconds, device-busy seconds (the sum of kernel and
@@ -86,16 +88,19 @@ def main() -> int:
     dfd_series(gray)
     n = 100
     dfd = profiled(lambda: [dfd_series(gray) for _ in range(n)], top=3)
-    kernel = [r for r in dfd["top"] if "dfd_kernel" in r["op"]]
+    kernel_ms = sum(r["device_ms"] for r in dfd["top"] if "dfd_" in r["op"])
     result["dfd"] = {
         "shape": [257, 50, 89], "launches": n,
-        "kernel_us_per_launch": kernel[0]["device_ms"] * 1e3 / n if kernel else None,
+        "kernel_us_per_launch": kernel_ms * 1e3 / n if kernel_ms else None,
         "wall_us_per_call": dfd["wall_s"] * 1e6 / n, **dfd}
 
     frames, fps, _, _ = chip_smoke.make_episode()
     list(Shot(Video(frames[:64], fps=fps), device="cuda"))      # warm-up
     result["shot"] = {"frames": len(frames), **profiled(
         lambda: list(Shot(Video(frames, fps=fps), device="cuda")))}
+    list(Shot(Video(frames[:64], fps=fps), height=144, device="cuda"))
+    result["shot_h144"] = {"frames": len(frames), "height": 144, **profiled(
+        lambda: list(Shot(Video(frames, fps=fps), height=144, device="cuda")))}
 
     det = FaceDetector(device="cuda")
     det.detect_batch(frames[:32])                                # warm-up

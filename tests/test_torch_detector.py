@@ -44,6 +44,14 @@ def assert_same_boxes(out, ref, min_iou=0.9):
             assert max(iou(box, b) for b in o) >= min_iou
 
 
+@pytest.fixture(autouse=True)
+def served_detector_env(monkeypatch):
+    """Both packages serve the refiner unless ``PYV_NO_REFINE=1``; a JAX
+    training helper sets that variable for the rest of its process
+    (``train/train_refiner.py``), so each test here starts without it."""
+    monkeypatch.delenv("PYV_NO_REFINE", raising=False)
+
+
 @pytest.fixture(scope="module")
 def frames():
     ep = synthetic_episode(n_shots=2, shot_frames=8, width=160, height=120,

@@ -1,7 +1,7 @@
 """Rules of the PyTorch port that no parity test would catch.
 
-* No module of ``pyannote_video_tpu_torch`` and not ``chip_smoke.py``
-  imports ``jax`` or ``pyannote_video_tpu``.
+* No module of ``pyannote_video_tpu_torch``, not ``chip_smoke.py`` and not
+  the scripts that run on the card imports ``jax`` or ``pyannote_video_tpu``.
 * Entry points called without ``device`` on a machine without CUDA raise;
   they never run on the CPU unasked.
 """
@@ -15,7 +15,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pyannote_video_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
+    ROOT / "scripts" / "dfd_probe.py"]
 FORBIDDEN = ("jax", "jaxlib", "pyannote_video_tpu")
 
 
