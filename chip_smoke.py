@@ -25,9 +25,29 @@ printing one JSON line:
 5. detect: ``FaceDetector`` with the packaged detector and refiner on those
    frames in batches of 32; recall >= 0.9 at IoU >= 0.5, and on 2 frames the
    card's float32 boxes match the CPU's (same count, IoU >= 0.9);
-6. kernels: per kernel its launches on the main path (both shot runs and
-   detect, the counts reset just before), error, times, bound, and the
-   registers, spills and shared memory ptxas reports for each instance.
+6. dsst (before the main path): the tracker's tensor programs on the card
+   against the port's own CPU run from the same seeded inputs: the patch
+   sampler (max error <= 4e-3 on 0-255 values); ``restart_slots`` then 8
+   ``_step_core`` steps on moving textured squares at 1280x720 with 16
+   slots (positions and sizes within 1e-3 px, ``alive`` equal, PSR within
+   rtol 1e-2); ``_optimal_match`` on 200 seeded random gated matrices and
+   the tie patterns of the association tests, and ``_jv_match`` at 16
+   detections (card result equal to the CPU's, element for element).  It
+   prints the device launches of one ``_step_core`` and of one
+   detection-frame step, and the mean time per step of a 64-frame scan;
+7. track (on the main path, after shot and detect): ``do_shot`` writes
+   ``shot.json`` from the 720p episode, ``face_cli.track`` reads it and
+   writes ``tracking.txt`` (detection every 0.2 s), ``formats.read_tracking``
+   reads that back.  Every shot has a track, no track crosses a cut, the
+   true face of >= 90% of the frames is covered by a track point at
+   IoU >= 0.4, every status is one of the reference's strings; and the
+   first two shots tracked again on the CPU, with the card's detections
+   injected, give the same (t, track, status) sequence with boxes within
+   2 px;
+8. kernels: per kernel its launches on the main path (both shot runs,
+   detect and track, the counts reset just before), error, times, bound,
+   and the registers, spills and shared memory ptxas reports for each
+   instance.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without printing it.
@@ -35,11 +55,14 @@ raises, so the script exits non-zero without printing it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -48,6 +71,19 @@ DFD_SHAPES = [(257, 50, 89), (257, 50, 67), (12, 40, 60), (65, 144, 256),
               (1025, 36, 64), (5, 1080, 1920)]
 RUNTIME_INSTANCE = {"radius": 2, "block": 4}
 DFD_TOL = 1e-3
+CHIP_TOL = 4e-3             # patch sampler, card vs CPU, on 0-255 values
+STEP_POS_TOL = 1e-3         # px, after 8 steps, card vs CPU
+STEP_PSR_RTOL = 1e-2
+TRACK_BOX_TOL = 2.0         # px, card track file vs CPU re-run
+DETECT_EVERY = 0.2          # seconds between detection frames
+# the tie patterns of the association tests
+TIE_PATTERNS = [
+    [[0.50, 0.45], [0.40, 0.00]], [[0.51, 0.49], [0.49, 0.51]],
+    [[0.5, 0.5], [0.5, 0.5]], [[0.9, 0.2], [0.85, 0.0]],
+    [[0.6, 0.0, 0.0], [0.7, 0.5, 0.0], [0.0, 0.6, 0.4]],
+    [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]], [[0.3]],
+    [[0.4, 0.4, 0.4]], [[0.4], [0.4], [0.4]],
+]
 # one H100 SXM (NVIDIA data sheet): HBM bytes/s and f32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -336,6 +372,304 @@ def phase_detect(frames, gt):
           "card_bf16_vs_cpu_bf16_agree": boxes_agree(found[:2], cpu16)})
 
 
+def dsst_step_bytes(n_slots: int) -> int:
+    """Bytes one ``_step_core`` must move: the filter state read and
+    written once, and the four taps of every pixel of the translation
+    patch (64 x 64) and of the shared super-patch (128 x 128) read from
+    the frame."""
+    from pyannote_video_tpu_torch.ops import dsst
+
+    state = dsst.init_state(1)
+    state_bytes = sum(v.numel() * v.element_size() for v in state)
+    taps = 4 * 4 * (dsst.P ** 2 + dsst._STEP_SUPER ** 2)
+    return n_slots * (2 * state_bytes + taps)
+
+
+def device_launches(fn) -> int:
+    """Kernels and copies the device ran during ``fn()`` (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(evt.count for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA)
+    check(n > 0, "the profiler saw the device")
+    return n
+
+
+def moving_squares(T: int, n_objects: int, H: int = 720, W: int = 1280):
+    """[T, H, W] float32 frames of textured squares drifting over a noisy
+    background, and their boxes [T, n_objects, 4]."""
+    rng = np.random.default_rng(SEED)
+    bg = rng.uniform(20, 60, (H, W)).astype(np.float32)
+    frames = np.empty((T, H, W), np.float32)
+    boxes = np.empty((T, n_objects, 4), np.float32)
+    objs = []
+    for k in range(n_objects):
+        # 12 x 12 random cells of 5-16 px: texture that survives the
+        # sampler's decimation to a 64 x 64 patch
+        tex = np.kron(rng.uniform(60, 255, (12, 12)),
+                      np.ones((int(rng.integers(5, 17)),) * 2)).astype(np.float32)
+        objs.append((tex, rng.uniform(220, H - 220), rng.uniform(220, W - 220),
+                     rng.uniform(-1.5, 1.5), rng.uniform(-1.5, 1.5)))
+    for t in range(T):
+        img = bg.copy()
+        for k, (tex, cy, cx, vy, vx) in enumerate(objs):
+            size = tex.shape[0]
+            y0 = int(round(cy + vy * t - size / 2))
+            x0 = int(round(cx + vx * t - size / 2))
+            img[y0:y0 + size, x0:x0 + size] = tex
+            boxes[t, k] = (x0, y0, x0 + size, y0 + size)
+        frames[t] = img
+    return frames, boxes
+
+
+def phase_dsst():
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from pyannote_video_tpu_torch.ops import dsst
+    from pyannote_video_tpu_torch.ops.warp import separable_resize_chips
+
+    rng = np.random.default_rng(SEED)
+    N, D, STEPS = 16, 8, 8
+    out = {"phase": "dsst", "size": [1280, 720], "slots": N}
+
+    # the patch sampler
+    frames4 = rng.uniform(0, 255, (4, 720, 1280, 1)).astype(np.float32)
+    mats = np.zeros((64, 2, 3), np.float32)
+    mats[:, 0, 0], mats[:, 1, 1] = rng.uniform(0.3, 6.0, (2, 64))
+    mats[:, 0, 2] = rng.uniform(-50, 1250, 64)
+    mats[:, 1, 2] = rng.uniform(-50, 700, 64)
+    idx = rng.integers(0, 4, 64)
+    args = [torch.from_numpy(a) for a in (frames4, idx, mats)]
+    chips_cpu = separable_resize_chips(*args, 64, 64)
+    chips = separable_resize_chips(*[a.cuda() for a in args], 64, 64).cpu()
+    out["chips_max_abs_err"] = float((chips - chips_cpu).abs().max())
+    check(out["chips_max_abs_err"] <= CHIP_TOL,
+          f"separable_resize_chips card vs CPU {out['chips_max_abs_err']}")
+
+    # restart_slots, then STEPS steps, card against CPU
+    frames, boxes = moving_squares(STEPS + 1, 5)
+    slot_boxes = np.tile(np.asarray([[10, 10, 50, 50]], np.float32), (N, 1))
+    mask = np.zeros((N,), bool)
+    for k, slot in enumerate((0, 3, 4, 9, 15)):
+        slot_boxes[slot], mask[slot] = boxes[0, k], True
+    states, confs = {}, {}
+    for dev in ("cpu", "cuda"):
+        grays = torch.from_numpy(frames).to(dev)
+        st = dsst.restart_slots(
+            dsst.init_state(N, dev), grays,
+            torch.zeros((N,), dtype=torch.long, device=dev),
+            torch.from_numpy(slot_boxes).to(dev), torch.from_numpy(mask).to(dev))
+        for t in range(1, STEPS + 1):
+            st, _, conf = dsst._step_core(
+                st, grays, torch.full((N,), t, dtype=torch.long, device=dev), 10.0)
+        states[dev], confs[dev] = dsst.state_to_numpy(st), conf.cpu().numpy()
+    pos_err = float(np.abs(states["cuda"]["pos"] - states["cpu"]["pos"]).max())
+    size_err = float(np.abs(states["cuda"]["size"] - states["cpu"]["size"]).max())
+    live = states["cpu"]["alive"]
+    check(live.sum() == 5, f"the 5 targets are alive after {STEPS} steps: {live}")
+    check(np.array_equal(states["cuda"]["alive"], live), "alive: card == CPU")
+    check(pos_err <= STEP_POS_TOL and size_err <= STEP_POS_TOL,
+          f"{STEPS} steps, card vs CPU: pos {pos_err} size {size_err}")
+    psr_rel = float(np.abs(confs["cuda"][live] / confs["cpu"][live] - 1).max())
+    check(psr_rel <= STEP_PSR_RTOL, f"PSR card vs CPU rel {psr_rel}")
+    centre = states["cuda"]["pos"][[0, 3, 4, 9, 15]][:, ::-1]
+    truth = (boxes[STEPS, :, :2] + boxes[STEPS, :, 2:]) / 2
+    check(np.abs(centre - truth).max() < 4.0, "the trackers followed the squares")
+    out.update(steps=STEPS, pos_max_abs_err=pos_err, size_max_abs_err=size_err,
+               psr_max_rel_err=psr_rel)
+
+    # the matchers: ties must fall on the card as on the CPU
+    cases = [np.asarray(p, np.float32) for p in TIE_PATTERNS]
+    for trial in range(200):
+        ov = rng.uniform(0, 1, (4 if trial % 2 else N, D)).astype(np.float32)
+        ov[rng.uniform(size=ov.shape) < 0.5] = 0.0
+        cases.append(np.round(ov * 4) / 4 if trial % 5 == 0 else ov)
+    wide = rng.uniform(0, 1, (N, 16)).astype(np.float32)
+    wide[rng.uniform(size=wide.shape) < 0.6] = 0.0
+    cases.append(wide)
+    for ov in cases:
+        on_cpu = dsst._optimal_match(torch.from_numpy(ov))
+        on_card = dsst._optimal_match(torch.from_numpy(ov).cuda()).cpu()
+        check(torch.equal(on_card, on_cpu),
+              f"matcher card {on_card.tolist()} == CPU {on_cpu.tolist()}")
+    rows, cols = linear_sum_assignment(-wide.astype(np.float64))
+    total = float(sum(wide[n, d] for d, n in enumerate(on_card.tolist()) if n >= 0))
+    check(abs(total - float(wide[rows, cols].sum())) < 1e-5,
+          "_jv_match total equals Hungarian's")
+    out.update(matcher_cases=len(cases), matcher_card_equals_cpu=True,
+               jv_total=total)
+
+    # launches and time per step
+    T = 64
+    frames, boxes = moving_squares(T, 5)
+    grays = torch.from_numpy(frames).cuda()
+    det_boxes = np.zeros((T, D, 4), np.float32)
+    det_valid = np.zeros((T, D), bool)
+    det_boxes[::5, :5], det_valid[::5, :5] = boxes[::5], True
+
+    def scan(dets: bool, t0: int = 0, t1: int = T):
+        dv = det_valid if dets else det_valid & (np.arange(T) == 0)[:, None]
+        sl = slice(t0, t1)
+        return dsst.shot_scan(
+            dsst.init_state(N, "cuda"),
+            torch.full((N,), -1, dtype=torch.long, device="cuda"), 0, grays,
+            np.ones((t1 - t0,), bool), det_boxes[sl], dv[sl], 10.0, 0.5, 0.6,
+            frame_index=np.arange(t0, t1))
+
+    def wall_ms_per_step(dets: bool) -> float:
+        scan(dets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, packed, _ = scan(dets)
+        torch.cuda.synchronize()
+        check(bool((packed[:, :, dsst.PACK_STATUS] > 0).any()), "scan tracked")
+        return (time.perf_counter() - t0) / T * 1e3
+
+    state = dsst.restart_slots(
+        dsst.init_state(N, "cuda"), grays,
+        torch.zeros((N,), dtype=torch.long, device="cuda"),
+        torch.from_numpy(slot_boxes).cuda(), torch.from_numpy(mask).cuda())
+    frame1 = torch.full((N,), 1, dtype=torch.long, device="cuda")
+    dsst._step_core(state, grays, frame1, 10.0)
+    out["launches_per_step_core"] = device_launches(
+        lambda: dsst._step_core(state, grays, frame1, 10.0))
+    # a scan of one detection frame, less its fixed set-up (a scan of one
+    # plain frame, less one _step_core)
+    one_det = device_launches(lambda: scan(True, 5, 6))
+    one_plain = device_launches(lambda: scan(False, 6, 7))
+    out["launches_per_detection_step"] = (
+        one_det - one_plain + out["launches_per_step_core"])
+    out["launches_scan_setup"] = one_plain - out["launches_per_step_core"]
+    out["scan_frames"] = T
+    out["step_bytes"] = dsst_step_bytes(N)
+    out["step_hbm_ms"] = out["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    out["ms_per_step_detect_every_5"] = wall_ms_per_step(True)
+    out["ms_per_step_no_detections"] = wall_ms_per_step(False)
+    emit(out)
+
+
+@contextlib.contextmanager
+def stopwatch(cls, *names):
+    """Wall seconds spent inside methods ``names`` of ``cls`` while the
+    context is open, as a dict by name."""
+    seconds = dict.fromkeys(names, 0.0)
+    saved = {name: getattr(cls, name) for name in names}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                seconds[name] += time.perf_counter() - t0
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(cls, name, timed(name, fn))
+    try:
+        yield seconds
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+
+
+def phase_track(frames, fps, cuts, gt):
+    import torch
+
+    from pyannote_video_tpu_torch.cli.face_cli import MAX_GAP, MIN_OVERLAP_RATIO, track
+    from pyannote_video_tpu_torch.cli.structure_cli import do_shot
+    from pyannote_video_tpu_torch.core import formats, load
+    from pyannote_video_tpu_torch.io.video import Video
+    from pyannote_video_tpu_torch.pipeline.face_tracking import FaceTracking
+    from pyannote_video_tpu_torch.pipeline.tracking import TrackingByDetection
+
+    W, H = 1280, 720
+    with tempfile.TemporaryDirectory() as tmp:
+        shot_json, tracking_txt = Path(tmp, "shot.json"), Path(tmp, "tracking.txt")
+        do_shot(Video(frames, fps=fps), str(shot_json), threshold=2.0,
+                device="cuda")
+        with open(shot_json) as fp:
+            shots = list(load(fp))
+        check(len(shots) == len(cuts) + 1, f"shot.json holds {len(shots)} shots")
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with stopwatch(TrackingByDetection, "_detect_frames",
+                       "_track_passes") as spent:
+            track(Video(frames, fps=fps), str(shot_json), str(tracking_txt),
+                  detect_every=DETECT_EVERY, device="cuda")
+        seconds = time.perf_counter() - t0
+        points = formats.read_tracking(str(tracking_txt))
+    check(len(points) > 0, "tracking.txt holds points")
+
+    tracks = {}
+    for p in points:
+        tracks.setdefault(p.identifier, []).append(p)
+    for seg in shots:
+        check(any(seg.start <= p.t < seg.end for p in points),
+              f"a track in shot {seg.start:.2f}-{seg.end:.2f}")
+    for ident, pts in tracks.items():
+        ts = [p.t for p in pts]
+        check(not any(min(ts) < c - 1e-6 <= max(ts) for c in cuts),
+              f"track {ident} crosses a cut")
+    parts = {"forward", "detection", "backward"}
+    check(all(set(p.status.removeprefix("error(").removesuffix(")").split("+"))
+              <= parts for p in points), "statuses are the reference's")
+    by_time = {}
+    for p in points:
+        by_time.setdefault(round(p.t * fps), []).append(
+            (p.left * W, p.top * H, p.right * W, p.bottom * H))
+    faces = [(f, g) for f, boxes in enumerate(gt) for g in boxes]
+    covered = sum(any(box_iou(g, b) >= 0.4 for b in by_time.get(f, []))
+                  for f, g in faces)
+    coverage = covered / len(faces)
+    check(coverage >= 0.9, f"track coverage {coverage}")
+
+    # the first two shots again on the CPU, from the card's detections
+    n2 = int(round(shots[1].end * fps))
+    every = max(1, int(DETECT_EVERY * fps))
+    card = FaceTracking(device="cuda")
+    detections, key = {}, lambda frame: frame[::16, ::16].tobytes()
+    for seg in shots[:2]:
+        a, b = int(round(seg.start * fps)), int(round(seg.end * fps))
+        found = card._detect_frames(frames[a:b], np.arange(0, b - a, every))
+        detections.update({key(frames[a + i]): boxes for i, boxes in found.items()})
+    check(len(detections) == 2 * len(range(0, 32, every)),
+          "one detection list per detection frame")
+    cpu_tracks = list(TrackingByDetection(
+        detect_func=lambda frame: detections[key(frame)],
+        detect_every=DETECT_EVERY, track_min_overlap_ratio=MIN_OVERLAP_RATIO,
+        track_max_gap=MAX_GAP, device="cpu")(
+            Video(frames[:n2], fps=fps), shots[:2]))
+    cpu_points = [(t, ident, status, box) for ident, trk in enumerate(cpu_tracks)
+                  for t, box, status in trk]
+    card_points = [p for p in points if p.t < shots[1].end - 1e-6]
+    check([(round(t, 3), i, s) for t, i, s, _ in cpu_points]
+          == [(round(p.t, 3), p.identifier, p.status) for p in card_points],
+          "CPU re-run: same (t, track, status) sequence as the card's file")
+    scale = np.asarray([W, H, W, H])
+    box_err = float(max(
+        np.abs(np.asarray(box) * scale
+               - np.asarray([p.left, p.top, p.right, p.bottom]) * scale).max()
+        for (_, _, _, box), p in zip(cpu_points, card_points)))
+    check(box_err <= TRACK_BOX_TOL, f"CPU re-run boxes differ by {box_err} px")
+
+    emit({"phase": "track", "frames": len(frames), "size": [W, H],
+          "shots": len(shots), "tracks": len(tracks), "points": len(points),
+          "detect_every_s": DETECT_EVERY, "coverage_iou40": coverage,
+          "seconds": seconds, "frames_per_s": len(frames) / seconds,
+          "share_detect": spent["_detect_frames"] / seconds,
+          "share_scans": spent["_track_passes"] / seconds,
+          "cpu_rerun_points": len(cpu_points), "cpu_rerun_box_max_err_px": box_err})
+
+
 def main() -> int:
     import torch
 
@@ -350,12 +684,14 @@ def main() -> int:
 
     kind = phase_device()
     dfd_row = phase_dfd(phase_build())
+    phase_dsst()
     frames, fps, cuts, gt = make_episode()
 
     # the main path: every launch count starts at 0 here
     dfd_series.launches = 0
     phase_shot(frames, fps, cuts)
     phase_detect(frames, gt)
+    phase_track(frames, fps, cuts, gt)
     dfd_row["launches"] = dfd_series.launches
     check(dfd_row["launches"] > 0, "the shot path launched the dfd kernel")
 

@@ -33,6 +33,10 @@ _LAZY = {
     "Video": ("pyannote_video_tpu_torch.io.video", "Video"),
     "Shot": ("pyannote_video_tpu_torch.pipeline.shot", "Shot"),
     "FaceDetector": ("pyannote_video_tpu_torch.models.detector", "FaceDetector"),
+    "TrackingByDetection": ("pyannote_video_tpu_torch.pipeline.tracking",
+                            "TrackingByDetection"),
+    "FaceTracking": ("pyannote_video_tpu_torch.pipeline.face_tracking",
+                     "FaceTracking"),
 }
 
 __all__ = ["__version__", "Segment", "Timeline"] + list(_LAZY)

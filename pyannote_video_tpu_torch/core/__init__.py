@@ -1,5 +1,7 @@
-"""Host-side core: temporal structures and their JSON files."""
+"""Host-side core: temporal structures, file formats, small algorithms."""
 
+from . import formats
+from .graph import Graph, UnionFind, connected_components_from_edges
 from .segment import (
     Annotation,
     Segment,
@@ -20,4 +22,8 @@ __all__ = [
     "load",
     "loads",
     "string_generator",
+    "formats",
+    "Graph",
+    "UnionFind",
+    "connected_components_from_edges",
 ]

@@ -32,6 +32,9 @@ from ..ops.color import resize_bilinear
 from ..utils.device import DeviceLike, resolve_device
 
 WINDOW = 40          # base detection window (px) — MMOD face window size
+# smallest face (px) the detector can see: what ``detect_smallest`` of the
+# tracking stage and the ``Face`` facade mean (dlib HOG used 36)
+SMALLEST_FACE = WINDOW
 STRIDE = 8           # total downsampling of the FCN
 PYRAMID_RATIO = 0.75
 TOPK = 16            # candidates per level per frame

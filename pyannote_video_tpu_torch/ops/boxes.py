@@ -1,13 +1,17 @@
-"""Box geometry on the host: overlaps and greedy NMS (numpy).
+"""Box geometry: overlaps and greedy NMS on the host, gated overlaps on
+the device.
 
-Copy, in numpy, of the parts of ``pyannote_video_tpu/ops/boxes.py`` that
-detection uses.  Boxes are ``(left, top, right, bottom)`` rows; areas use
-dlib's closed-grid convention (width = right - left + 1).
+Port of ``pyannote_video_tpu/ops/boxes.py``.  Boxes are ``(left, top,
+right, bottom)`` rows; areas use dlib's closed-grid convention (width =
+right - left + 1).  The numpy forms serve detection's NMS on a few dozen
+host boxes; the ``*_t`` tensor forms run inside the tracking scan, on the
+tracker state's device, in float32.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def box_area(boxes) -> np.ndarray:
@@ -70,3 +74,51 @@ def nms(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float = 0.4,
         ):
             keep.append(int(i))
     return keep
+
+
+# -- tensor forms (the tracking scan's association, on the state's device) --
+
+
+def box_area_t(boxes: torch.Tensor) -> torch.Tensor:
+    boxes = boxes.to(torch.float32)
+    w = (boxes[..., 2] - boxes[..., 0] + 1.0).clamp_min(0.0)
+    h = (boxes[..., 3] - boxes[..., 1] + 1.0).clamp_min(0.0)
+    return w * h
+
+
+def intersection_area_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise intersection areas: a [N,4] × b [M,4] → [N, M]."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
+    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    wh = (rb - lt + 1.0).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    disjoint = (rb[..., 0] < lt[..., 0]) | (rb[..., 1] < lt[..., 1])
+    return torch.where(disjoint, torch.zeros_like(inter), inter)
+
+
+def gated_overlap_t(a: torch.Tensor, b: torch.Tensor,
+                    min_overlap_ratio: float) -> torch.Tensor:
+    """Overlap area, zeroed whenever it is below ``min_overlap_ratio``
+    times EITHER box's area (the reference's ``_match`` gate)."""
+    inter = intersection_area_t(a, b)
+    area_a = box_area_t(a)[:, None]
+    area_b = box_area_t(b)[None, :]
+    gate = ((inter >= min_overlap_ratio * area_a)
+            & (inter >= min_overlap_ratio * area_b))
+    return torch.where(gate, inter, torch.zeros_like(inter))
+
+
+def overlap_min_ratio_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Intersection over the SMALLER box's area, on the device."""
+    inter = intersection_area_t(a, b)
+    min_area = torch.minimum(box_area_t(a)[:, None], box_area_t(b)[None, :])
+    return inter / min_area.clamp_min(1e-9)
+
+
+def normalize_boxes(boxes, frame_width: float, frame_height: float) -> np.ndarray:
+    """Pixel boxes → frame-size-normalised coords."""
+    scale = np.asarray([frame_width, frame_height, frame_width, frame_height],
+                       dtype=np.float32)
+    return np.asarray(boxes, dtype=np.float32) / scale

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's shot and detect paths, on one GPU.
+"""Where the time goes in the PyTorch port's shot, detect and track paths, on one GPU.
 
 Run from the repository root: ``python3 scripts/torch_profile.py [--out
 FILE]``.  It uses the same 1280x720 synthetic episode as ``chip_smoke.py``
@@ -10,7 +10,11 @@ and ``torch.profiler`` (CUPTI) for device times:
   instances included) beside the host wall time per call;
 * shot: one ``Shot`` run over the 320 frames, at the default height 50 and
   at height 144 (frames the kernel cuts into row bands);
-* detect: ``FaceDetector.detect_batch`` over 4 batches of 32 frames.
+* detect: ``FaceDetector.detect_batch`` over 4 batches of 32 frames;
+* track: ``FaceTracking`` over one 32-frame shot (16 slots, detection every
+  0.2 s): the whole stage, and its two scans alone (``_track_passes`` from
+  ready detections), each with device launches per frame and per scan step
+  and the largest gaps between consecutive device operations.
 
 For each path: wall seconds, device-busy seconds (the sum of kernel and
 copy times on the single stream), the idle share, and the top device
@@ -39,7 +43,26 @@ def device_time_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def profiled(fn, top: int = 8):
+def idle_gaps(prof, top: int = 5) -> dict:
+    """Gaps between consecutive device operations of a profile, in
+    microseconds: the largest, and the median."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((evt.time_range.start, evt.time_range.end)
+                   for evt in prof.events()
+                   if evt.device_type == DeviceType.CUDA)
+    gaps, busy_until = [], None
+    for start, end in spans:
+        if busy_until is not None and start > busy_until:
+            gaps.append(start - busy_until)
+        busy_until = end if busy_until is None else max(busy_until, end)
+    gaps.sort(reverse=True)
+    return {"device_ops": len(spans), "gaps": len(gaps),
+            "largest_gaps_us": [float(g) for g in gaps[:top]],
+            "median_gap_us": float(gaps[len(gaps) // 2]) if gaps else None}
+
+
+def profiled(fn, top: int = 8, gaps: bool = False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,12 +76,16 @@ def profiled(fn, top: int = 8):
             for evt in prof.key_averages() if device_time_us(evt) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * 1e-6
-    return {
+    result = {
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": max(0.0, 1.0 - busy / wall) if wall > 0 else None,
+        "device_launches": sum(r[2] for r in rows),
         "top": [{"op": k[:90], "device_ms": us * 1e-3, "count": n}
                 for k, us, n in rows[:top]],
     }
+    if gaps:
+        result["idle_gaps"] = idle_gaps(prof)
+    return result
 
 
 def main() -> int:
@@ -107,6 +134,31 @@ def main() -> int:
     batches = [frames[i:i + 32] for i in range(0, 128, 32)]
     result["detect"] = {"frames": 128, **profiled(
         lambda: [det.detect_batch(b) for b in batches])}
+
+    from pyannote_video_tpu_torch.core import Segment
+    from pyannote_video_tpu_torch.ops.color import to_gray
+    from pyannote_video_tpu_torch.pipeline.face_tracking import FaceTracking
+
+    n = 32
+    shot, segment = frames[:n], [Segment(0.0, n / fps)]
+    tracker = FaceTracking(detect_every=chip_smoke.DETECT_EVERY, device="cuda")
+    list(tracker(Video(shot, fps=fps), segment))                 # warm-up
+    stage = profiled(lambda: list(tracker(Video(shot, fps=fps), segment)),
+                     gaps=True)
+    every = max(1, int(chip_smoke.DETECT_EVERY * fps))
+    detections = tracker._detect_frames(shot, np.arange(0, n, every))
+    grays = to_gray(torch.from_numpy(shot).cuda())
+    ts = np.arange(n) / fps
+    scans = profiled(lambda: tracker._track_passes(grays, ts, detections),
+                     gaps=True)
+    result["track"] = {
+        "frames": n, "slots": 16, "detection_frames": len(detections),
+        "launches_per_frame": stage["device_launches"] / n, **stage,
+        "scans": {"steps": 2 * n,
+                  "launches_per_step": scans["device_launches"] / (2 * n),
+                  "wall_ms_per_step": scans["wall_s"] * 1e3 / (2 * n),
+                  "device_busy_ms_per_step":
+                      scans["device_busy_s"] * 1e3 / (2 * n), **scans}}
 
     text = json.dumps(result)
     print(text)

@@ -4,9 +4,11 @@
   the scripts that run on the card imports ``jax`` or ``pyannote_video_tpu``.
 * Entry points called without ``device`` on a machine without CUDA raise;
   they never run on the CPU unasked.
+* The tracking scan's bodies hold no call that waits for the device.
 """
 
 import ast
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -64,12 +66,63 @@ def _main(tmp_path):
     main(["shot", str(tmp_path / "missing.avi"), str(tmp_path / "out.json")])
 
 
-@pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main"])
+def _tracking_by_detection():
+    from pyannote_video_tpu_torch.pipeline.tracking import TrackingByDetection
+
+    TrackingByDetection(detect_func=lambda frame: [])
+
+
+def _face_tracking():
+    from pyannote_video_tpu_torch.pipeline.face_tracking import FaceTracking
+
+    FaceTracking()
+
+
+def _face_track(tmp_path):
+    from pyannote_video_tpu_torch.cli.face_cli import track
+    from pyannote_video_tpu_torch.io.video import Video
+
+    track(Video(_frames()), str(tmp_path / "missing.json"),
+          str(tmp_path / "out.json"))
+
+
+def _face_main(tmp_path):
+    from pyannote_video_tpu_torch.cli.face_cli import main
+
+    main(["track", str(tmp_path / "missing.avi"),
+          str(tmp_path / "missing.json"), str(tmp_path / "out.json")])
+
+
+@pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main",
+                                   "TrackingByDetection", "FaceTracking",
+                                   "face_cli.track", "face_cli.main"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"Shot": _shot, "FaceDetector": _detector,
             "do_shot": lambda: _do_shot(tmp_path),
-            "main": lambda: _main(tmp_path)}[entry]
+            "main": lambda: _main(tmp_path),
+            "TrackingByDetection": _tracking_by_detection,
+            "FaceTracking": _face_tracking,
+            "face_cli.track": lambda: _face_track(tmp_path),
+            "face_cli.main": lambda: _face_main(tmp_path)}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not (tmp_path / "out.json").exists()
+
+
+SYNCING_CALLS = (".item(", ".cpu(", ".tolist(", ".nonzero(", "bool(",
+                 ".numpy(", "torch.tensor(")
+
+
+@pytest.mark.parametrize("name", ["shot_scan", "_det_branch", "_step_core",
+                                  "_psr", "_optimal_match", "_jv_match",
+                                  "restart_slots", "_filter_init_from_boxes"])
+def test_scan_bodies_never_wait_for_the_device(name):
+    """A pass is enqueued whole: nothing in the scan reads a device value
+    on the host or builds a tensor from host data per frame."""
+    from pyannote_video_tpu_torch.ops import dsst
+
+    source = inspect.getsource(getattr(dsst, name))
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"dsst.{name} calls {found}"
