@@ -35,7 +35,20 @@ printing one JSON line:
    detections (card result equal to the CPU's, element for element).  It
    prints the device launches of one ``_step_core`` and of one
    detection-frame step, and the mean time per step of a 64-frame scan;
-7. track (on the main path, after shot and detect): ``do_shot`` writes
+7. extract_parts (before the main path): the extract stage's tensor
+   programs on the card against the port's own CPU run, from 64 faces on 64
+   frames of the 720p episode: ``predict_crops`` with the packaged 15-stage
+   cascade (>= 95% of faces within 5e-3 px on every landmark, all within
+   1 px; a face beyond 5e-3 px is a split that flipped on a feature one ulp
+   from its threshold), the two samplers from the same matrices (<= 4e-3
+   on 0-255) and the three chip cuts (mean error <= 4e-3, largest error
+   within what the fitted transforms' coordinate difference explains), the
+   float32 embedder (<= 1e-4), the bfloat16 embedder against the card's
+   float32 (Euclidean distance <= 0.05, a twelfth of the clustering
+   threshold) and ``pairwise_dist`` (<= 1e-5).  It prints the device
+   launches, device ms and wall ms of one ``predict_crops`` and of one
+   bfloat16 ``embedder.forward`` at 64 faces, and the bytes each must move;
+8. track (on the main path, after shot and detect): ``do_shot`` writes
    ``shot.json`` from the 720p episode, ``face_cli.track`` reads it and
    writes ``tracking.txt`` (detection every 0.2 s), ``formats.read_tracking``
    reads that back.  Every shot has a track, no track crosses a cut, the
@@ -44,8 +57,19 @@ printing one JSON line:
    first two shots tracked again on the CPU, with the card's detections
    injected, give the same (t, track, status) sequence with boxes within
    2 px;
-8. kernels: per kernel its launches on the main path (both shot runs,
-   detect and track, the counts reset just before), error, times, bound,
+9. extract (on the main path, same directory): ``face_cli.extract`` reads
+   ``tracking.txt`` and writes ``landmarks.txt`` and ``embeddings.txt``.
+   One line of each per track point, in (t, track) order; every embedding
+   has 128 finite values and unit norm; the landmarks' mean lies in the
+   track box and they sit within 10% of the face height of the episode's
+   true landmarks; the first 64 faces extracted again on the CPU agree
+   under the rules of phase 7;
+10. cluster (on the main path): ``FaceClustering(threshold=0.6)`` on
+   ``embeddings.txt``; the labels equal a CPU run's.  It prints how many
+   tracks share a cluster with a track of another identity (not gated: the
+   packaged weights are trained on synthetic faces);
+11. kernels: per kernel its launches on the main path (both shot runs,
+   detect, track, extract and cluster, the counts reset just before), error, times, bound,
    and the registers, spills and shared memory ptxas reports for each
    instance.
 
@@ -76,6 +100,13 @@ STEP_POS_TOL = 1e-3         # px, after 8 steps, card vs CPU
 STEP_PSR_RTOL = 1e-2
 TRACK_BOX_TOL = 2.0         # px, card track file vs CPU re-run
 DETECT_EVERY = 0.2          # seconds between detection frames
+LANDMARK_TOL = 5e-3         # px, cascade card vs CPU, faces with no flipped split
+LANDMARK_FLIP_TOL = 1.0     # px, every face
+LANDMARK_AGREE_SHARE = 0.95
+EMBED_F32_TOL = 1e-4        # float32 embedder, card vs CPU
+EMBED_BF16_DIST = 0.05      # Euclidean, bf16 vs f32: a twelfth of the threshold
+DIST_TOL = 1e-5
+CLUSTER_THRESHOLD = 0.6
 # the tie patterns of the association tests
 TIE_PATTERNS = [
     [[0.50, 0.45], [0.40, 0.00]], [[0.51, 0.49], [0.49, 0.51]],
@@ -282,7 +313,9 @@ def phase_dfd(ptxas: dict):
 
 def make_episode():
     """A 1280x720 episode, rendered at 640x360 and upscaled 2x on the card
-    (rendering at full size costs ~4x the host time); boxes scale with it."""
+    (rendering at full size costs ~4x the host time); boxes scale with it.
+    Returns frames, fps, cuts, the true boxes per frame, and per frame the
+    true (landmarks [68, 2], identity) of each face."""
     import torch
 
     from pyannote_video_tpu_torch.ops.color import resize_bilinear
@@ -296,7 +329,9 @@ def make_episode():
         frames[i:i + 64] = up.round().clamp(0, 255).to(torch.uint8).cpu().numpy()
     gt = [[tuple(2.0 * v for v in f.box) for f in ep.faces_at(i)]
           for i in range(len(frames))]
-    return frames, ep.fps, ep.cuts, gt
+    truth = [[(2.0 * f.landmarks, f.face_id) for f in ep.faces_at(i)]
+             for i in range(len(frames))]
+    return frames, ep.fps, ep.cuts, gt, truth
 
 
 def phase_shot(frames, fps, cuts):
@@ -387,6 +422,12 @@ def dsst_step_bytes(n_slots: int) -> int:
 
 def device_launches(fn) -> int:
     """Kernels and copies the device ran during ``fn()`` (torch.profiler)."""
+    return device_profile(fn)[0]
+
+
+def device_profile(fn):
+    """(launches, device ms) of the kernels and copies the device ran during
+    ``fn()`` (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -395,10 +436,11 @@ def device_launches(fn) -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    n = sum(evt.count for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA)
+    rows = [evt for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA]
+    n = sum(evt.count for evt in rows)
     check(n > 0, "the profiler saw the device")
-    return n
+    return n, sum(float(evt.self_device_time_total) for evt in rows) * 1e-3
 
 
 def moving_squares(T: int, n_objects: int, H: int = 720, W: int = 1280):
@@ -555,6 +597,194 @@ def phase_dsst():
     emit(out)
 
 
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean wall time of ``fn()`` ending in a synchronise, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def landmark_agreement(out: np.ndarray, ref: np.ndarray, what: str) -> dict:
+    """The cascade rule: per face the largest landmark error in px; at
+    least LANDMARK_AGREE_SHARE of the faces within LANDMARK_TOL (the others
+    had a split flip), every face within LANDMARK_FLIP_TOL."""
+    err = np.abs(out - ref).max(axis=(1, 2))
+    agree = err <= LANDMARK_TOL
+    check(agree.mean() >= LANDMARK_AGREE_SHARE,
+          f"{what}: {int(agree.sum())} of {len(err)} faces within {LANDMARK_TOL} px")
+    check(err.max() <= LANDMARK_FLIP_TOL, f"{what}: largest error {err.max()} px")
+    return {"faces": len(err), "faces_with_flipped_split": int((~agree).sum()),
+            "share_within_5e-3_px": float(agree.mean()),
+            "max_err_px": float(err.max()),
+            "max_err_px_agreeing": float(err[agree].max())}
+
+
+def embedder_bytes(params, n: int) -> dict:
+    """Bytes one ``embedder.forward`` of ``n`` chips must move: the weights
+    once, the chips in, and each conv's float32 output map written once and
+    read once (sizes walked from the block plan)."""
+    from pyannote_video_tpu_torch.models.embedder import BLOCK_PLAN, CHIP_SIZE
+
+    def tensors(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from tensors(v)
+        elif hasattr(node, "numel"):
+            yield node
+
+    weights = sum(t.numel() * t.element_size() for t in tensors(params))
+    side = (CHIP_SIZE - 7) // 2 + 1                      # stem, VALID 7x7/2
+    maps = n * params["stem"]["w"].shape[0] * side * side
+    side = (side - 3) // 2 + 1                           # max-pool 3/2
+    for i, down in enumerate(BLOCK_PLAN):
+        if down:
+            side = (side - 3) // 2 + 1                   # VALID 3x3/2
+        channels = params["blocks"][f"block{i}"]["conv1"]["w"].shape[0]
+        maps += 2 * n * channels * side * side           # conv1, conv2
+    chips = n * CHIP_SIZE * CHIP_SIZE * 3 * 4
+    return {"weights": weights, "chips_in": chips, "activations": 2 * 4 * maps,
+            "total": weights + chips + 2 * 4 * maps}
+
+
+def phase_extract_parts(frames, gt):
+    import torch
+
+    from pyannote_video_tpu_torch.models import chip, embedder, landmarks
+    from pyannote_video_tpu_torch.models.weights import (
+        LANDMARKS_FILE, default_embedder_params)
+    from pyannote_video_tpu_torch.models.nn import state_to
+    from pyannote_video_tpu_torch.ops.color import to_gray
+    from pyannote_video_tpu_torch.ops.distance import pairwise_dist
+
+    rng = np.random.default_rng(SEED)
+    N = 64
+    picks = [f for f in range(0, len(frames), 5) if gt[f]][:N]
+    check(len(picks) == N, f"{N} frames with a face")
+    stack = torch.from_numpy(frames[picks])                  # [64, 720, 1280, 3]
+    fidx = torch.arange(N)
+    # the true boxes, moved and resized by a few pixels as a tracker's are
+    boxes = torch.from_numpy(
+        np.asarray([gt[f][0] for f in picks], np.float32)
+        + rng.uniform(-4, 4, (N, 4)).astype(np.float32))
+    out = {"phase": "extract_parts", "size": [1280, 720], "faces": N,
+           "frames": N}
+
+    # the cascade
+    cascade = {dev: landmarks._load(LANDMARKS_FILE, dev) for dev in ("cpu", "cuda")}
+    check(cascade["cpu"]["n_stages"] == 15 and cascade["cpu"]["s0/i1"].shape[0] == 224,
+          "the packaged cascade has 15 stages of 224 trees")
+    lm_cpu = landmarks.predict_crops(cascade["cpu"], to_gray(stack), fidx, boxes)
+    stack_d, fidx_d, boxes_d = stack.cuda(), fidx.cuda(), boxes.cuda()
+    grays_d = to_gray(stack_d)
+    lm_card = landmarks.predict_crops(cascade["cuda"], grays_d, fidx_d, boxes_d)
+    check(bool(torch.isfinite(lm_card).all()), "landmarks finite")
+    out["cascade"] = landmark_agreement(lm_card.cpu().numpy(), lm_cpu.numpy(),
+                                        "predict_crops card vs CPU")
+
+    # the chip cuts, from the same (CPU) landmarks on both devices.  The
+    # samplers, given the same matrices, must agree within CHIP_TOL.  The
+    # cuts fit their matrices on their own device: a mean over 68
+    # coordinates of ~1000 px rounds by about an ulp of it (6e-5 px) per
+    # device, and an edge of the image turns that into up to 255 levels
+    # per px, so a cut's largest error is held to what the measured
+    # coordinate difference explains, and its mean error to CHIP_TOL.
+    from pyannote_video_tpu_torch.ops.warp import (gather_affine_warp,
+                                                   separable_resize_chips)
+
+    mats_cpu = chip.chip_transforms(lm_cpu)
+    mats_card = chip.chip_transforms(lm_cpu.cuda()).cpu()
+    corners = torch.tensor([[0.0, 0.0, 1.0], [149.0, 0.0, 1.0],
+                            [0.0, 149.0, 1.0], [149.0, 149.0, 1.0]])
+    coord_diff = float(((mats_card - mats_cpu) @ corners.T).abs().max())
+    check(coord_diff <= 1e-3, f"chip transforms card vs CPU {coord_diff} px")
+    out["chip_transform_max_coord_diff_px"] = coord_diff
+    aligned = chip._axis_aligned(mats_cpu, 150.0)
+    for name, sampler, mats in (
+            ("separable_resize_chips", separable_resize_chips, aligned),
+            ("gather_affine_warp", gather_affine_warp, mats_cpu)):
+        on_cpu = sampler(stack, fidx, mats, 150, 150)
+        on_card = sampler(stack_d, fidx_d, mats.cuda(), 150, 150).cpu()
+        err = float((on_card - on_cpu).abs().max())
+        check(err <= CHIP_TOL, f"{name} card vs CPU, same matrices: {err}")
+        out[f"{name}_max_abs_err"] = err
+    planes = (stack[..., 0].contiguous(), stack[:, ::2, ::2, 1].contiguous(),
+              stack[:, ::2, ::2, 2].contiguous())
+    cuts = {
+        "extract_chips": lambda dev: chip.extract_chips(
+            stack.to(dev), fidx.to(dev), lm_cpu.to(dev)),
+        "extract_chips_exact": lambda dev: chip.extract_chips_exact(
+            stack.to(dev), fidx.to(dev), lm_cpu.to(dev)),
+        "extract_chips_yuv": lambda dev: chip.extract_chips_yuv(
+            *(p.to(dev) for p in planes), fidx.to(dev), lm_cpu.to(dev)),
+    }
+    for name, cut in cuts.items():
+        on_cpu, on_card = cut("cpu"), cut("cuda").cpu()
+        check(on_card.shape == (N, 150, 150, 3), f"{name} shape")
+        diff = (on_card - on_cpu).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        # the YUV inverse scales a plane's error by up to 2.017
+        check(err <= 2.017 * 255.0 * coord_diff + CHIP_TOL and mean_err <= CHIP_TOL,
+              f"{name} card vs CPU: max {err}, mean {mean_err}, "
+              f"coordinates differ by {coord_diff} px")
+        out[f"{name}_max_abs_err"] = err
+        out[f"{name}_mean_abs_err"] = mean_err
+    chips_cpu = cuts["extract_chips"]("cpu")
+    chips_d = chips_cpu.cuda()
+
+    # the embedder: float32 against the CPU, bfloat16 against the card's float32
+    params = default_embedder_params()
+    check(params["stem"]["w"].shape[0] == 32 and tuple(params["fc"].shape) == (256, 128),
+          "the packaged embedder has full width")
+    params_d = state_to(params, torch.device("cuda"))
+    with torch.no_grad():
+        emb_cpu = embedder.forward(params, chips_cpu, compute_dtype=torch.float32)
+        emb_f32 = embedder.forward(params_d, chips_d, compute_dtype=torch.float32)
+        emb_bf16 = embedder.forward(params_d, chips_d)
+    check(bool(torch.isfinite(emb_bf16).all()), "embeddings finite")
+    out["embedder_f32_max_abs_err"] = float((emb_f32.cpu() - emb_cpu).abs().max())
+    check(out["embedder_f32_max_abs_err"] <= EMBED_F32_TOL,
+          f"float32 embedder card vs CPU {out['embedder_f32_max_abs_err']}")
+    out["embedder_bf16_max_dist"] = float((emb_bf16 - emb_f32).norm(dim=1).max())
+    check(out["embedder_bf16_max_dist"] <= EMBED_BF16_DIST,
+          f"bf16 embedder vs float32 {out['embedder_bf16_max_dist']}")
+
+    # distances
+    x = torch.from_numpy(rng.normal(0, 1, (320, 128)).astype(np.float32))
+    x = x / x.norm(dim=1, keepdim=True)
+    out["pairwise_dist_max_abs_err"] = float(
+        (pairwise_dist(x.cuda()).cpu() - pairwise_dist(x)).abs().max())
+    check(out["pairwise_dist_max_abs_err"] <= DIST_TOL,
+          f"pairwise_dist card vs CPU {out['pairwise_dist_max_abs_err']}")
+
+    # launches, device time and wall time of the two candidates for a kernel
+    def run_cascade():
+        return landmarks.predict_crops(cascade["cuda"], grays_d, fidx_d, boxes_d)
+
+    def run_embedder():
+        with torch.no_grad():
+            return embedder.forward(params_d, chips_d)
+
+    leaves = cascade["cpu"]["s0/leaves"]
+    for name, fn, nbytes in (
+            ("predict_crops", run_cascade,
+             {"leaf_rows": 15 * N * leaves.shape[0] * leaves.shape[2] * 4,
+              "crops": N * landmarks.CROP ** 2 * 4}),
+            ("embedder_forward_bf16", run_embedder, embedder_bytes(params, N))):
+        ms = wall_ms(fn)
+        launches, device_ms = device_profile(fn)
+        total = nbytes.get("total", sum(nbytes.values()))
+        out[name] = {"launches": launches, "device_ms": device_ms, "wall_ms": ms,
+                     "bytes": nbytes,
+                     "hbm_ms": total / HBM_BYTES_PER_S * 1e3}
+    emit(out)
+
+
 @contextlib.contextmanager
 def stopwatch(cls, *names):
     """Wall seconds spent inside methods ``names`` of ``cls`` while the
@@ -580,7 +810,7 @@ def stopwatch(cls, *names):
             setattr(cls, name, fn)
 
 
-def phase_track(frames, fps, cuts, gt):
+def phase_track(tmp, frames, fps, cuts, gt):
     import torch
 
     from pyannote_video_tpu_torch.cli.face_cli import MAX_GAP, MIN_OVERLAP_RATIO, track
@@ -591,22 +821,21 @@ def phase_track(frames, fps, cuts, gt):
     from pyannote_video_tpu_torch.pipeline.tracking import TrackingByDetection
 
     W, H = 1280, 720
-    with tempfile.TemporaryDirectory() as tmp:
-        shot_json, tracking_txt = Path(tmp, "shot.json"), Path(tmp, "tracking.txt")
-        do_shot(Video(frames, fps=fps), str(shot_json), threshold=2.0,
-                device="cuda")
-        with open(shot_json) as fp:
-            shots = list(load(fp))
-        check(len(shots) == len(cuts) + 1, f"shot.json holds {len(shots)} shots")
+    shot_json, tracking_txt = Path(tmp, "shot.json"), Path(tmp, "tracking.txt")
+    do_shot(Video(frames, fps=fps), str(shot_json), threshold=2.0,
+            device="cuda")
+    with open(shot_json) as fp:
+        shots = list(load(fp))
+    check(len(shots) == len(cuts) + 1, f"shot.json holds {len(shots)} shots")
 
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with stopwatch(TrackingByDetection, "_detect_frames",
-                       "_track_passes") as spent:
-            track(Video(frames, fps=fps), str(shot_json), str(tracking_txt),
-                  detect_every=DETECT_EVERY, device="cuda")
-        seconds = time.perf_counter() - t0
-        points = formats.read_tracking(str(tracking_txt))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with stopwatch(TrackingByDetection, "_detect_frames",
+                   "_track_passes") as spent:
+        track(Video(frames, fps=fps), str(shot_json), str(tracking_txt),
+              detect_every=DETECT_EVERY, device="cuda")
+    seconds = time.perf_counter() - t0
+    points = formats.read_tracking(str(tracking_txt))
     check(len(points) > 0, "tracking.txt holds points")
 
     tracks = {}
@@ -670,6 +899,123 @@ def phase_track(frames, fps, cuts, gt):
           "cpu_rerun_points": len(cpu_points), "cpu_rerun_box_max_err_px": box_err})
 
 
+def phase_extract(tmp, frames, fps, truth):
+    import torch
+
+    from pyannote_video_tpu_torch.cli.face_cli import extract
+    from pyannote_video_tpu_torch.core import formats
+    from pyannote_video_tpu_torch.io.video import Video
+
+    W, H = 1280, 720
+    size = np.asarray([W, H])
+    tracking_txt = Path(tmp, "tracking.txt")
+    landmarks_txt, embeddings_txt = Path(tmp, "landmarks.txt"), Path(tmp, "embeddings.txt")
+    points = formats.read_tracking(str(tracking_txt))
+    ordered = [p for _, group in formats.iter_tracking_by_time(points) for p in group]
+
+    spent = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extract(Video(frames, fps=fps), "", "", str(tracking_txt),
+            str(landmarks_txt), str(embeddings_txt), device="cuda", stats=spent)
+    seconds = time.perf_counter() - t0
+
+    rows = formats.read_landmarks(str(landmarks_txt))
+    times, idents, X = formats.read_embeddings(str(embeddings_txt))
+    want = [(round(p.t, 3), p.identifier) for p in ordered]
+    check([(t, i) for t, i, _ in rows] == want,
+          "one landmarks line per track point, in (t, track) order")
+    check(list(zip(times.tolist(), idents.tolist())) == want,
+          "one embedding line per track point, in (t, track) order")
+    check(X.shape == (len(points), 128) and bool(np.isfinite(X).all()),
+          f"embeddings {X.shape} finite")
+    norms = np.linalg.norm(X, axis=1)
+    check(float(np.abs(norms - 1.0).max()) <= 1e-3, f"embedding norms {norms.min()}-{norms.max()}")
+
+    lm = np.stack([pts for _, _, pts in rows])                  # normalized
+    check(lm.shape == (len(points), 68, 2) and bool(np.isfinite(lm).all()),
+          f"landmarks {lm.shape} finite")
+    mean = lm.mean(axis=1)
+    check(all(p.left <= mx <= p.right and p.top <= my <= p.bottom
+              for p, (mx, my) in zip(ordered, mean)),
+          "every face's mean landmark lies in its track box")
+    errs, heights = [], []
+    for p, pts in zip(ordered, lm * size):
+        centre = np.asarray([(p.left + p.right) / 2 * W, (p.top + p.bottom) / 2 * H])
+        true_lm, _ = min(truth[int(round(p.t * fps))],
+                         key=lambda face: np.abs(face[0].mean(axis=0) - centre).sum())
+        errs.append(np.linalg.norm(pts - true_lm, axis=1).mean())
+        heights.append((p.bottom - p.top) * H)
+    mean_err, mean_height = float(np.mean(errs)), float(np.mean(heights))
+    check(mean_err <= 0.1 * mean_height,
+          f"landmarks {mean_err} px from the truth at face height {mean_height}")
+
+    # the first 64 faces again on the CPU (float32 convs there: the exact
+    # algorithm, against the card's served bfloat16)
+    first = Path(tmp, "tracking64.txt")
+    with open(first, "w") as fp:
+        for p in ordered[:64]:
+            formats.write_track_point(fp, p)
+    extract(Video(frames, fps=fps), "", "", str(first),
+            str(Path(tmp, "landmarks64.txt")), str(Path(tmp, "embeddings64.txt")),
+            device="cpu", compute_dtype=torch.float32)
+    cpu_rows = formats.read_landmarks(str(Path(tmp, "landmarks64.txt")))
+    _, _, cpu_X = formats.read_embeddings(str(Path(tmp, "embeddings64.txt")))
+    check([(t, i) for t, i, _ in cpu_rows] == want[:64], "CPU re-run: same lines")
+    agreement = landmark_agreement(
+        lm[:64] * size, np.stack([pts for _, _, pts in cpu_rows]) * size,
+        "extract card vs CPU")
+    dist = float(np.linalg.norm(X[:64] - cpu_X, axis=1).max())
+    check(dist <= EMBED_BF16_DIST, f"extract embeddings card bf16 vs CPU f32 {dist}")
+
+    emit({"phase": "extract", "faces": len(points), "size": [W, H],
+          "faces_per_batch": 64, "seconds": seconds,
+          "faces_per_s": len(points) / seconds,
+          "share_load_models": spent["load"] / seconds,
+          "share_frames_and_copy": spent["frames"] / seconds,
+          "share_cascade": spent["cascade"] / seconds,
+          "share_chips": spent["chips"] / seconds,
+          "share_embedder_and_readback": spent["embedder"] / seconds,
+          "share_write": spent["write"] / seconds,
+          "landmark_mean_err_px": mean_err, "face_height_px": mean_height,
+          "cpu_rerun": agreement, "cpu_rerun_embedding_max_dist": dist})
+    return ordered
+
+
+def phase_cluster(tmp, ordered, fps, truth):
+    from pyannote_video_tpu_torch.pipeline.clustering import FaceClustering
+
+    embeddings_txt = str(Path(tmp, "embeddings.txt"))
+    t0 = time.perf_counter()
+    clustering = FaceClustering(threshold=CLUSTER_THRESHOLD, device="cuda")
+    starting_point, features = clustering.model.preprocess(embeddings_txt)
+    result = clustering(starting_point, features=features)
+    seconds = time.perf_counter() - t0
+    labels = {track: label for _, track, label in result.itertracks(yield_label=True)}
+    on_cpu = FaceClustering(threshold=CLUSTER_THRESHOLD, device="cpu")
+    cpu_result = on_cpu(*on_cpu.model.preprocess(embeddings_txt))
+    check([(s.start, s.end, t, l) for s, t, l in result.itertracks(yield_label=True)]
+          == [(s.start, s.end, t, l) for s, t, l in cpu_result.itertracks(yield_label=True)],
+          "cluster labels: card == CPU")
+    check(set(labels) <= {p.identifier for p in ordered} and len(labels) > 0,
+          "every clustered track is a track of tracking.txt")
+
+    # each track's identity: the episode's face at its frames (one per frame)
+    votes = {}
+    for p in ordered:
+        faces = truth[int(round(p.t * fps))]
+        if faces:
+            votes.setdefault(p.identifier, []).append(faces[0][1])
+    identity = {t: max(set(v), key=v.count) for t, v in votes.items()}
+    mixed = sum(any(labels[o] == labels[t] and identity[o] != identity[t]
+                    for o in labels if o != t) for t in labels)
+    emit({"phase": "cluster", "threshold": CLUSTER_THRESHOLD,
+          "tracks": len(labels), "clusters": len(set(labels.values())),
+          "identities": len(set(identity.values())),
+          "tracks_sharing_a_cluster_with_another_identity": mixed,
+          "card_equals_cpu": True, "seconds": seconds})
+
+
 def main() -> int:
     import torch
 
@@ -685,13 +1031,18 @@ def main() -> int:
     kind = phase_device()
     dfd_row = phase_dfd(phase_build())
     phase_dsst()
-    frames, fps, cuts, gt = make_episode()
+    frames, fps, cuts, gt, truth = make_episode()
+    phase_extract_parts(frames, gt)
 
     # the main path: every launch count starts at 0 here
     dfd_series.launches = 0
     phase_shot(frames, fps, cuts)
     phase_detect(frames, gt)
-    phase_track(frames, fps, cuts, gt)
+    # shot -> track -> extract -> cluster through stage files in one directory
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_track(tmp, frames, fps, cuts, gt)
+        ordered = phase_extract(tmp, frames, fps, truth)
+        phase_cluster(tmp, ordered, fps, truth)
     dfd_row["launches"] = dfd_series.launches
     check(dfd_row["launches"] > 0, "the shot path launched the dfd kernel")
 

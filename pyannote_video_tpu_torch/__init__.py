@@ -37,6 +37,9 @@ _LAZY = {
                             "TrackingByDetection"),
     "FaceTracking": ("pyannote_video_tpu_torch.pipeline.face_tracking",
                      "FaceTracking"),
+    "FaceClustering": ("pyannote_video_tpu_torch.pipeline.clustering",
+                       "FaceClustering"),
+    "Face": ("pyannote_video_tpu_torch.pipeline.face", "Face"),
 }
 
 __all__ = ["__version__", "Segment", "Timeline"] + list(_LAZY)

@@ -1,13 +1,18 @@
-"""pyannote-face CLI on PyTorch: the ``track`` command.
+"""pyannote-face CLI on PyTorch: the ``track`` and ``extract`` commands.
 
 Port of ``pyannote_video_tpu/cli/face_cli.py`` with the same USAGE, flags,
-defaults and tracking-file schema (one line per (t, track-id, normalized
-bbox, status)).  ``track`` runs the per-shot engine
-(``pipeline/tracking.py``) as a single worker; ``extract``, ``demo`` and
-``--world`` > 1 are not ported yet and exit with a message saying so.
+defaults and file schemas (tracking: one line per (t, track-id, normalized
+bbox, status); landmarks and embeddings: one line per tracked face).
+``track`` runs the per-shot engine (``pipeline/tracking.py``) as a single
+worker.  ``extract`` runs the chunked engine (64 faces per batch, frames
+read by timestamp), which is what the JAX CLI runs under
+``PYV_NO_STREAM=1``; its default there is the streaming path, which is not
+ported yet.  ``demo`` and ``--world`` > 1 are not ported yet and exit with
+a message saying so.
 
 Run as ``python -m pyannote_video_tpu_torch.cli.face_cli track <video>
-<shot.json> <tracking>``; it runs on the CUDA device (``main(argv,
+<shot.json> <tracking>`` or ``... extract <video> <tracking> "" ""
+<landmarks> <embeddings>``; it runs on the CUDA device (``main(argv,
 device="cpu")`` from Python runs it on the CPU).
 """
 
@@ -99,7 +104,6 @@ MIN_CONFIDENCE = 10.0
 MAX_GAP = 1.0
 
 _NOT_PORTED = {
-    "extract": "ROADMAP: 'Extract'",
     "demo": "ROADMAP: 'Fused program and demo'",
     "--world": "ROADMAP: 'Streaming and the face CLI'",
 }
@@ -179,6 +183,126 @@ def track(video, shot_path, output,
         print(stats.finish(), file=sys.stderr)
 
 
+EXTRACT_FACES_PER_BATCH = 64  # faces per device dispatch
+
+
+def extract_batch(video, chunk, predictor, embedder, chip_fn,
+                  lap=lambda part, since: since):
+    """One batch of ``extract``: ``chunk`` is a list of (T, track point).
+
+    The chunk's unique frames are stacked once and sent to the device once;
+    the cascade, the chip cut and the embedder are enqueued without a wait,
+    and landmarks [n, 68, 2] (pixels) and embeddings [n, 128] come back in
+    one read.  ``lap(part, since)`` is told when each part was enqueued.
+    """
+    import time
+
+    import numpy as np
+    import torch
+
+    device = predictor.device
+    frame_width, frame_height = video.frame_size
+    tick = time.perf_counter()
+    times = sorted({T for T, _ in chunk})
+    t_index = {T: i for i, T in enumerate(times)}
+    frames = torch.from_numpy(np.stack([video(T) for T in times])).to(device)
+    fidx = torch.from_numpy(np.asarray(
+        [t_index[T] for T, _ in chunk], dtype=np.int64)).to(device)
+    boxes = torch.from_numpy(np.asarray(
+        [[p.left * frame_width, p.top * frame_height,
+          p.right * frame_width, p.bottom * frame_height]
+         for _, p in chunk], dtype=np.float32)).to(device)
+    tick = lap("frames", tick)
+
+    landmarks = predictor.predict_device(frames, fidx, boxes)
+    tick = lap("cascade", tick)
+    chips = chip_fn(frames, fidx, landmarks)
+    tick = lap("chips", tick)
+    embeddings = embedder.embed_device(chips)
+    # one read per batch: landmarks and embeddings together
+    packed = torch.cat([landmarks.reshape(len(chunk), -1), embeddings],
+                       dim=1).cpu().numpy()
+    lap("embedder", tick)
+    n_lm = landmarks.shape[1] * 2
+    return packed[:, :n_lm].reshape(len(chunk), -1, 2), packed[:, n_lm:]
+
+
+def extract(video, landmark_model, embedding_model, tracking_path,
+            landmark_output, embedding_output, exact_chips=False,
+            verbose=False, device: DeviceLike = None, compute_dtype=None,
+            stats=None):
+    """Landmarks + embeddings for tracked faces (reference
+    `pyannote-face.py:271-314`).
+
+    The tracked faces are grouped by time and taken 64 at a time.  A
+    batch's unique frames are stacked once and sent to the device once;
+    the cascade, the chip cut and the embedder run there, and landmarks
+    and embeddings come back in one read per batch.  The JAX engine pads
+    the frame axis to a power of two and the face axis to 64 to bound its
+    compilations; nothing is compiled per shape here and a face's result
+    does not depend on its batch, so the last batch is simply shorter.
+
+    ``compute_dtype`` (default bfloat16) is the embedder's conv dtype.
+    ``stats``, a dict, receives the seconds spent per part (``load``: the
+    tracking file and the two models, ``frames``: stacking and copy,
+    ``cascade``, ``chips``, ``embedder``, ``write``);
+    timing them synchronises the device after each part.
+    """
+    import time
+
+    import numpy as np
+    import torch
+
+    from ..core import formats
+    from ..models.chip import extract_chips, extract_chips_exact
+    from ..models.embedder import FaceEmbedder
+    from ..models.landmarks import LandmarkPredictor
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+
+    def lap(part, since):
+        if stats is None:
+            return since
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        stats[part] = stats.get(part, 0.0) + (now - since)
+        return now
+
+    tick = time.perf_counter()
+    frame_width, frame_height = video.frame_size
+    points = formats.read_tracking(tracking_path)
+    predictor = LandmarkPredictor(landmark_model or None, device=device)
+    embedder = FaceEmbedder(
+        embedding_model or None, device=device,
+        compute_dtype=torch.bfloat16 if compute_dtype is None else compute_dtype)
+    chip_fn = extract_chips_exact if exact_chips else extract_chips
+    lap("load", tick)
+
+    # flatten to (T, point) preserving group order
+    flat = [(T, p) for T, group in formats.iter_tracking_by_time(points)
+            for p in group]
+    size = np.asarray([frame_width, frame_height])
+
+    with open(landmark_output, "w") as flandmark, \
+         open(embedding_output, "w") as fembedding:
+        for start in range(0, len(flat), EXTRACT_FACES_PER_BATCH):
+            chunk = flat[start: start + EXTRACT_FACES_PER_BATCH]
+            landmarks, embeddings = extract_batch(
+                video, chunk, predictor, embedder, chip_fn, lap)
+            tick = time.perf_counter()
+            for (T, p), lm, emb in zip(chunk, landmarks, embeddings):
+                formats.write_landmarks_line(flandmark, T, p.identifier,
+                                             lm / size)
+                formats.write_embedding_line(fembedding, T, p.identifier, emb)
+            flandmark.flush()
+            fembedding.flush()
+            lap("write", tick)
+    if verbose:
+        print(f"extract: {len(flat)} faces", file=sys.stderr)
+
+
 def main(argv=None, device: DeviceLike = None):
     from .. import __version__
     from ..io.video import Video
@@ -218,9 +342,8 @@ def main(argv=None, device: DeviceLike = None):
         },
     )
 
-    for command in ("extract", "demo"):
-        if arguments[command]:
-            raise _not_ported(command)
+    if arguments["demo"]:
+        raise _not_ported("demo")
     if int(arguments["--world"]) > 1:
         raise _not_ported("--world")
 
@@ -228,6 +351,13 @@ def main(argv=None, device: DeviceLike = None):
     verbose = bool(arguments["--verbose"])
     video = Video(arguments["<video>"], ffmpeg=arguments["--ffmpeg"] or None,
                   verbose=verbose)
+    if arguments["extract"]:
+        extract(video, arguments["<landmark_model>"],
+                arguments["<embedding_model>"], arguments["<tracking>"],
+                arguments["<landmarks>"], arguments["<embeddings>"],
+                exact_chips=bool(arguments["--exact-chips"]),
+                verbose=verbose, device=device)
+        return
     track(video, arguments["<shot.json>"], arguments["<tracking>"],
           detect_min_size=float(arguments["--min-size"]),
           detect_every=float(arguments["--every"]),

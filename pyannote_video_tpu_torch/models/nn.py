@@ -3,10 +3,13 @@
 Port of the inference half of ``pyannote_video_tpu/models/nn.py``.  The JAX
 package keeps NHWC activations and HWIO filters; here activations are NCHW
 and filters OIHW, PyTorch's own layout, and ``params_from_jax`` converts the
-packaged ``.npz`` files (flat ``"layer/name"`` keys) once at load time.
+packaged ``.npz`` files (flat ``"a/b/name"`` keys) once at load time.
 
 A state is a nested dict of tensors: ``{"c1": {"w", "b"}, "bn1": {"scale",
-"bias", "mean", "var"}, "d1": {"w", "b"}, ...}``.
+"bias", "mean", "var"}, "d1": {"w", "b"}, ...}`` for the detector and the
+refiner, ``{"stem": {...}, "stem_bn": {...}, "blocks": {"block0": {"conv1":
+{...}, "bn1": {...}, ...}}, "fc": tensor}`` for the embedder.  Training
+(``train=True``, the ``*_init`` functions) is not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-State = Dict[str, Dict[str, torch.Tensor]]
+State = Dict[str, object]
 
 
 def conv(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
@@ -50,6 +53,46 @@ def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
             + params["bias"][:, None, None])
 
 
+def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """VALID max pooling over NCHW (`nn.py:89-97` with dlib padding)."""
+    return F.max_pool2d(x, window, stride)
+
+
+def avg_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """VALID average pooling over NCHW (`nn.py:100-107`)."""
+    return F.avg_pool2d(x, window, stride)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] → [B, C]."""
+    return x.mean(dim=(2, 3))
+
+
+def resblock(params, x: torch.Tensor, down: bool = False,
+             compute_dtype=torch.float32) -> torch.Tensor:
+    """dlib-style residual block, inference only (`nn.py:127-156`).
+
+    down=False: y = relu(x + bn2(conv2(relu(bn1(conv1(x))))))
+    down=True : VALID stride-2 conv1; skip = 2×2 stride-2 average pool of
+                x, cropped to the conv output's height and width (the
+                VALID conv can be one pixel smaller than the pooled skip)
+                and zero-padded on channels (dlib ``residual_down``).
+    """
+    h = conv(params["conv1"], x, stride=2 if down else 1,
+             compute_dtype=compute_dtype)
+    h = F.relu(batch_norm(params["bn1"], h))
+    h = conv(params["conv2"], h, stride=1, compute_dtype=compute_dtype)
+    h = batch_norm(params["bn2"], h)
+    if down:
+        skip = avg_pool(x, 2, 2)[:, :, : h.shape[2], : h.shape[3]]
+        c_extra = h.shape[1] - skip.shape[1]
+        if c_extra > 0:
+            skip = F.pad(skip, (0, 0, 0, 0, 0, c_extra))
+    else:
+        skip = x
+    return F.relu(h + skip)
+
+
 def top_k(x: torch.Tensor, k: int):
     """Top-k along the last axis, ties broken by the lower index, as
     ``jax.lax.top_k`` does (``torch.topk`` promises no tie order)."""
@@ -57,26 +100,20 @@ def top_k(x: torch.Tensor, k: int):
     return values[..., :k], index[..., :k]
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
-    """Flat JAX ``.npz`` arrays → a state of float32 CPU tensors.
-
-    * conv filters ``*/w`` [kh, kw, in, out] (HWIO) → [out, in, kh, kw] (OIHW);
-    * dense weights ``*/w`` [in, out] → [out, in] (``F.linear``'s layout);
-    * the first dense layer after the convs (``d1``) reads a flattened
-      feature map: the JAX package flattens NHWC, this port flattens NCHW,
-      so its input rows are permuted from (h, w, c) to (c, h, w) order.
-    """
-    state: State = {}
-    for key, value in flat.items():
-        layer, name = key.split("/")
-        state.setdefault(layer, {})[name] = np.asarray(value, dtype=np.float32)
-    convs = sorted((k for k in state if re.fullmatch(r"c\d+", k)
-                    and state[k]["w"].ndim == 4), key=lambda k: int(k[1:]))
+def _to_port_layout(node: dict, top: bool) -> dict:
+    """One level of a nested numpy state, converted in place (see
+    ``params_from_jax``)."""
+    convs = sorted((k for k, v in node.items() if re.fullmatch(r"c\d+", k)
+                    and isinstance(v, dict) and v["w"].ndim == 4),
+                   key=lambda k: int(k[1:])) if top else []
     # channels of the last conv's output (HWIO, before any transpose)
-    c = state[convs[-1]]["w"].shape[3] if convs else 0
-    for layer, arrays in state.items():
+    c = node[convs[-1]]["w"].shape[3] if convs else 0
+    for layer, arrays in node.items():
+        if not isinstance(arrays, dict):
+            continue
         w = arrays.get("w")
-        if w is None:
+        if isinstance(w, dict) or w is None:
+            _to_port_layout(arrays, top=False)
             continue
         if w.ndim == 4:
             arrays["w"] = w.transpose(3, 2, 0, 1)
@@ -89,9 +126,46 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
                 w = (w.reshape(side, side, c, -1).transpose(2, 0, 1, 3)
                      .reshape(w.shape[0], -1))
             arrays["w"] = w.T
-    return {layer: {name: torch.from_numpy(np.ascontiguousarray(a))
-                    for name, a in arrays.items()}
-            for layer, arrays in state.items()}
+    return node
+
+
+def _to_tensors(node):
+    if isinstance(node, dict):
+        return {k: _to_tensors(v) for k, v in node.items()}
+    if isinstance(node, np.ndarray):
+        return torch.from_numpy(np.array(node, order="C"))
+    return node
+
+
+def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
+    """Flat JAX ``.npz`` arrays → a nested state of float32 CPU tensors.
+
+    Keys nest at every ``/`` (``blocks/block0/conv1/w`` →
+    ``state["blocks"]["block0"]["conv1"]["w"]``); a key without one is a
+    top-level array.  In a layer (a dict that holds ``w``) at any depth:
+
+    * conv filters ``w`` [kh, kw, in, out] (HWIO) → [out, in, kh, kw] (OIHW);
+    * dense weights ``w`` [in, out] → [out, in] (``F.linear``'s layout);
+    * the first dense layer after the convs (top-level ``d1`` beside
+      top-level ``c1..``) reads a flattened feature map: the JAX package
+      flattens NHWC, this port flattens NCHW, so its input rows are
+      permuted from (h, w, c) to (c, h, w) order.
+
+    Top-level arrays keep their layout: the embedder's ``fc`` stays
+    [in, out] and its forward computes ``pooled @ fc``.  The embedder's
+    optional ``normalized_head`` scalar becomes a Python bool.
+    """
+    state: dict = {}
+    for key, value in flat.items():
+        *parents, name = key.split("/")
+        node = state
+        for parent in parents:
+            node = node.setdefault(parent, {})
+        if not parents and name == "normalized_head":
+            node[name] = bool(np.asarray(value))
+        else:
+            node[name] = np.asarray(value, dtype=np.float32)
+    return _to_tensors(_to_port_layout(state, top=True))
 
 
 def load_params(path) -> State:
@@ -101,7 +175,8 @@ def load_params(path) -> State:
 
 
 def state_to(state, device: torch.device):
-    """A copy of a (nested) state with every tensor on ``device``."""
+    """A copy of a (nested) state with every tensor on ``device``; entries
+    that are not tensors (flags, counts) are kept."""
     if isinstance(state, dict):
         return {k: state_to(v, device) for k, v in state.items()}
-    return state.to(device)
+    return state.to(device) if isinstance(state, torch.Tensor) else state

@@ -17,6 +17,11 @@ WEIGHTS_DIR = (Path(__file__).resolve().parent.parent.parent
 
 DETECTOR_FILE = WEIGHTS_DIR / "detector_synthetic.npz"
 REFINER_FILE = WEIGHTS_DIR / "refiner_synthetic.npz"
+EMBEDDER_FILE = WEIGHTS_DIR / "embedder_synthetic.npz"
+LANDMARKS_FILE = WEIGHTS_DIR / "landmarks_synthetic.npz"
+
+# width multiplier of the packaged embedder: the full dlib ResNet-29
+EMBEDDER_WIDTH = 1.0
 
 
 def default_detector_params() -> State:
@@ -35,3 +40,11 @@ def default_refiner_params() -> Optional[State]:
     if REFINER_FILE.exists():
         return load_params(REFINER_FILE)
     return None
+
+
+def default_embedder_params() -> State:
+    """The packaged ResNet-29 embedder (raises if it is missing: random
+    weights belong to training, which is not ported)."""
+    if not EMBEDDER_FILE.exists():
+        raise FileNotFoundError(f"no packaged embedder weights at {EMBEDDER_FILE}")
+    return load_params(EMBEDDER_FILE)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's shot, detect and track paths, on one GPU.
+"""Where the time goes in the PyTorch port's shot, detect, track and extract paths, on one GPU.
 
 Run from the repository root: ``python3 scripts/torch_profile.py [--out
 FILE]``.  It uses the same 1280x720 synthetic episode as ``chip_smoke.py``
@@ -14,7 +14,11 @@ and ``torch.profiler`` (CUPTI) for device times:
 * track: ``FaceTracking`` over one 32-frame shot (16 slots, detection every
   0.2 s): the whole stage, and its two scans alone (``_track_passes`` from
   ready detections), each with device launches per frame and per scan step
-  and the largest gaps between consecutive device operations.
+  and the largest gaps between consecutive device operations;
+* extract: one 64-face batch of ``face_cli.extract`` (64 frames of 720p
+  stacked and copied, the 15-stage cascade, the chip cut, the bfloat16
+  ResNet-29, one read back), and the cascade and the embedder alone on
+  inputs that already lie on the card.
 
 For each path: wall seconds, device-busy seconds (the sum of kernel and
 copy times on the single stream), the idle share, and the top device
@@ -76,10 +80,13 @@ def profiled(fn, top: int = 8, gaps: bool = False):
             for evt in prof.key_averages() if device_time_us(evt) > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows) * 1e-6
+    copies = [r for r in rows if r[0].startswith(("Memcpy", "Memset"))]
     result = {
         "wall_s": wall, "device_busy_s": busy,
         "idle_share": max(0.0, 1.0 - busy / wall) if wall > 0 else None,
         "device_launches": sum(r[2] for r in rows),
+        "copies": {"count": sum(r[2] for r in copies),
+                   "device_ms": sum(r[1] for r in copies) * 1e-3},
         "top": [{"op": k[:90], "device_ms": us * 1e-3, "count": n}
                 for k, us, n in rows[:top]],
     }
@@ -121,7 +128,7 @@ def main() -> int:
         "kernel_us_per_launch": kernel_ms * 1e3 / n if kernel_ms else None,
         "wall_us_per_call": dfd["wall_s"] * 1e6 / n, **dfd}
 
-    frames, fps, _, _ = chip_smoke.make_episode()
+    frames, fps, _, gt, _ = chip_smoke.make_episode()
     list(Shot(Video(frames[:64], fps=fps), device="cuda"))      # warm-up
     result["shot"] = {"frames": len(frames), **profiled(
         lambda: list(Shot(Video(frames, fps=fps), device="cuda")))}
@@ -159,6 +166,45 @@ def main() -> int:
                   "wall_ms_per_step": scans["wall_s"] * 1e3 / (2 * n),
                   "device_busy_ms_per_step":
                       scans["device_busy_s"] * 1e3 / (2 * n), **scans}}
+
+    from pyannote_video_tpu_torch.cli.face_cli import extract_batch
+    from pyannote_video_tpu_torch.core.formats import TrackPoint
+    from pyannote_video_tpu_torch.models.chip import extract_chips
+    from pyannote_video_tpu_torch.models.embedder import FaceEmbedder
+    from pyannote_video_tpu_torch.models.landmarks import LandmarkPredictor
+
+    predictor = LandmarkPredictor(device="cuda")
+    embedder = FaceEmbedder(device="cuda")
+    video = Video(frames, fps=fps)
+    picks = [f for f in range(0, len(frames), 5) if gt[f]][:64]
+    chunk = [(f / fps, TrackPoint(
+        t=f / fps, identifier=0, left=gt[f][0][0] / 1280, top=gt[f][0][1] / 720,
+        right=gt[f][0][2] / 1280, bottom=gt[f][0][3] / 720, status="detection"))
+        for f in picks]
+    extract_batch(video, chunk, predictor, embedder, extract_chips)  # warm-up
+    batch = profiled(lambda: extract_batch(video, chunk, predictor, embedder,
+                                           extract_chips), gaps=True)
+    stack = torch.from_numpy(frames[picks]).cuda()
+    fidx = torch.arange(len(picks), device="cuda")
+    boxes = torch.tensor([gt[f][0] for f in picks], dtype=torch.float32).cuda()
+    landmarks = predictor.predict_device(stack, fidx, boxes)
+    chips = extract_chips(stack, fidx, landmarks)
+    # the batch's host side, without the profiler: stacking 64 frames, and
+    # the pageable copy of the stack to the card
+    t0 = time.perf_counter()
+    stacked = np.stack([video(t) for t, _ in chunk])
+    t1 = time.perf_counter()
+    torch.from_numpy(stacked).cuda()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    result["extract"] = {
+        "faces": len(chunk), "frames": len(picks), **batch,
+        "stack_bytes": int(stacked.nbytes), "stack_wall_ms": (t1 - t0) * 1e3,
+        "copy_wall_ms": (t2 - t1) * 1e3,
+        "cascade": profiled(
+            lambda: predictor.predict_device(stack, fidx, boxes), gaps=True),
+        "chips": profiled(lambda: extract_chips(stack, fidx, landmarks)),
+        "embedder": profiled(lambda: embedder.embed_device(chips), gaps=True)}
 
     text = json.dumps(result)
     print(text)

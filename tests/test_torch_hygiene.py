@@ -4,7 +4,8 @@
   the scripts that run on the card imports ``jax`` or ``pyannote_video_tpu``.
 * Entry points called without ``device`` on a machine without CUDA raise;
   they never run on the CPU unasked.
-* The tracking scan's bodies hold no call that waits for the device.
+* The tracking scan's bodies, and the extract stage's device functions,
+  hold no call that waits for the device.
 """
 
 import ast
@@ -93,9 +94,52 @@ def _face_main(tmp_path):
           str(tmp_path / "missing.json"), str(tmp_path / "out.json")])
 
 
+def _landmark_predictor():
+    from pyannote_video_tpu_torch.models.landmarks import LandmarkPredictor
+
+    LandmarkPredictor()
+
+
+def _face_embedder():
+    from pyannote_video_tpu_torch.models.embedder import FaceEmbedder
+
+    FaceEmbedder()
+
+
+def _face_extract(tmp_path):
+    from pyannote_video_tpu_torch.cli.face_cli import extract
+    from pyannote_video_tpu_torch.io.video import Video
+
+    extract(Video(_frames()), "", "", str(tmp_path / "missing.txt"),
+            str(tmp_path / "out.json"), str(tmp_path / "out2.json"))
+
+
+def _face_main_extract(tmp_path):
+    from pyannote_video_tpu_torch.cli.face_cli import main
+
+    main(["extract", str(tmp_path / "missing.avi"),
+          str(tmp_path / "missing.txt"), "", "", str(tmp_path / "out.json"),
+          str(tmp_path / "out2.json")])
+
+
+def _face_clustering():
+    from pyannote_video_tpu_torch.pipeline.clustering import FaceClustering
+
+    FaceClustering()
+
+
+def _face():
+    from pyannote_video_tpu_torch.pipeline.face import Face
+
+    Face()
+
+
 @pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main",
                                    "TrackingByDetection", "FaceTracking",
-                                   "face_cli.track", "face_cli.main"])
+                                   "face_cli.track", "face_cli.main",
+                                   "LandmarkPredictor", "FaceEmbedder",
+                                   "face_cli.extract", "face_cli.main extract",
+                                   "FaceClustering", "Face"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"Shot": _shot, "FaceDetector": _detector,
@@ -104,10 +148,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
             "TrackingByDetection": _tracking_by_detection,
             "FaceTracking": _face_tracking,
             "face_cli.track": lambda: _face_track(tmp_path),
-            "face_cli.main": lambda: _face_main(tmp_path)}[entry]
+            "face_cli.main": lambda: _face_main(tmp_path),
+            "LandmarkPredictor": _landmark_predictor,
+            "FaceEmbedder": _face_embedder,
+            "face_cli.extract": lambda: _face_extract(tmp_path),
+            "face_cli.main extract": lambda: _face_main_extract(tmp_path),
+            "FaceClustering": _face_clustering, "Face": _face}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not (tmp_path / "out.json").exists()
+    assert not (tmp_path / "out2.json").exists()
 
 
 SYNCING_CALLS = (".item(", ".cpu(", ".tolist(", ".nonzero(", "bool(",
@@ -126,3 +176,45 @@ def test_scan_bodies_never_wait_for_the_device(name):
     code = "\n".join(line.split("#")[0] for line in source.splitlines())
     found = [call for call in SYNCING_CALLS if call in code]
     assert not found, f"dsst.{name} calls {found}"
+
+
+def _extract_bodies():
+    from pyannote_video_tpu_torch.models import chip, embedder, landmarks, nn
+    from pyannote_video_tpu_torch.ops import distance, warp
+
+    return {
+        "landmarks.predict_cascade": landmarks.predict_cascade,
+        "landmarks.predict_crops": landmarks.predict_crops,
+        "landmarks._stage_features": landmarks._stage_features,
+        "landmarks._similarity_to_current": landmarks._similarity_to_current,
+        "embedder.forward": embedder.forward,
+        "nn.resblock": nn.resblock,
+        "chip.chip_transforms": chip.chip_transforms,
+        "chip._axis_aligned": chip._axis_aligned,
+        "chip.extract_chips": chip.extract_chips,
+        "chip.extract_chips_exact": chip.extract_chips_exact,
+        "chip.extract_chips_yuv": chip.extract_chips_yuv,
+        "chip.box_to_landmarks": chip.box_to_landmarks,
+        "warp.bilinear_sample": warp.bilinear_sample,
+        "warp.gather_affine_warp": warp.gather_affine_warp,
+        "warp.similarity_from_points": warp.similarity_from_points,
+        "warp.invert_affine": warp.invert_affine,
+        "distance.pairwise_sqdist": distance.pairwise_sqdist,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "landmarks.predict_cascade", "landmarks.predict_crops",
+    "landmarks._stage_features", "landmarks._similarity_to_current",
+    "embedder.forward", "nn.resblock", "chip.chip_transforms",
+    "chip._axis_aligned", "chip.extract_chips", "chip.extract_chips_exact",
+    "chip.extract_chips_yuv", "chip.box_to_landmarks", "warp.bilinear_sample",
+    "warp.gather_affine_warp", "warp.similarity_from_points",
+    "warp.invert_affine", "distance.pairwise_sqdist"])
+def test_extract_bodies_never_wait_for_the_device(name):
+    """One batch of the extract stage is enqueued whole; its one read is in
+    ``face_cli.extract``."""
+    source = inspect.getsource(_extract_bodies()[name])
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"{name} calls {found}"

@@ -381,7 +381,8 @@ class TestFaceCLI:
 class TestUnported:
     @pytest.mark.parametrize("argv,item", [
         (["track", "--world=2", "v.avi", "s.json", "t.txt"], "Streaming"),
-        (["extract", "v.avi", "t.txt", "", "", "l.txt", "e.txt"], "Extract"),
+        (["extract", "--world=2", "v.avi", "t.txt", "", "", "l.txt", "e.txt"],
+         "Streaming"),
         (["demo", "v.avi", "t.txt", "o.avi"], "demo"),
     ])
     def test_unported_commands_exit_nonzero(self, argv, item):
