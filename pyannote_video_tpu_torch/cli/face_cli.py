@@ -3,12 +3,17 @@
 Port of ``pyannote_video_tpu/cli/face_cli.py`` with the same USAGE, flags,
 defaults and file schemas (tracking: one line per (t, track-id, normalized
 bbox, status); landmarks and embeddings: one line per tracked face).
-``track`` runs the per-shot engine (``pipeline/tracking.py``) as a single
-worker.  ``extract`` runs the chunked engine (64 faces per batch, frames
-read by timestamp), which is what the JAX CLI runs under
-``PYV_NO_STREAM=1``; its default there is the streaming path, which is not
-ported yet.  ``demo`` and ``--world`` > 1 are not ported yet and exit with
-a message saying so.
+
+Both commands run the streaming engines of ``pipeline/streaming.py`` by
+default, as the JAX CLI does: one sequential decode, frames packed to YUV
+4:2:0 and copied to the device on threads of their own, gray and chips
+taken from the planes.  ``PYV_NO_STREAM=1`` selects the older engines: the
+per-shot tracker of ``pipeline/tracking.py`` (also taken for a custom
+``detect_func``) and the chunked extract (64 faces per batch, RGB frames
+read by timestamp).  ``track --rank r --world W`` shards the shots over W
+workers in either engine; rank 0 merges the part files
+(``parallel/multihost.py``).  ``demo`` is not ported yet and exits with a
+message saying so.
 
 Run as ``python -m pyannote_video_tpu_torch.cli.face_cli track <video>
 <shot.json> <tracking>`` or ``... extract <video> <tracking> "" ""
@@ -18,6 +23,7 @@ device="cpu")`` from Python runs it on the CPU).
 
 from __future__ import annotations
 
+import os
 import sys
 
 from ..utils.device import DeviceLike
@@ -105,7 +111,6 @@ MAX_GAP = 1.0
 
 _NOT_PORTED = {
     "demo": "ROADMAP: 'Fused program and demo'",
-    "--world": "ROADMAP: 'Streaming and the face CLI'",
 }
 
 
@@ -115,32 +120,46 @@ def _not_ported(what: str) -> SystemExit:
         f"({_NOT_PORTED[what]}); use pyannote_video_tpu's CLI")
 
 
+def _streaming() -> bool:
+    return os.environ.get("PYV_NO_STREAM") != "1"
+
+
 def track(video, shot_path, output,
           detect_min_size=0.0, detect_every=0.0,
           track_min_overlap_ratio=MIN_OVERLAP_RATIO,
           track_min_confidence=MIN_CONFIDENCE,
           track_max_gap=MAX_GAP, resume=False, verbose=False,
-          rank=0, world=1, coordinator=None, device: DeviceLike = None):
+          rank=0, world=1, coordinator=None, legs=None,
+          device: DeviceLike = None):
     """Tracking by detection (reference `pyannote-face.py:239-269`).
+
+    The streaming engine (``pipeline/streaming.py:stream_tracks``:
+    overlapped decode → YUV420 transfer → device compute, gray from the
+    luma plane) unless ``PYV_NO_STREAM=1`` or a custom ``detect_func``
+    asks for the per-shot one; both give the same track semantics.
+    ``legs``, a ``StreamLegs``, receives the streaming engine's seconds.
 
     With ``resume=True``, restarts from the shot containing the last
     written timestamp: shots are independent work units, so completed
     shots are kept verbatim and the interrupted shot is re-tracked.
-    """
-    import os
 
+    With ``world > 1`` (extension), this process is worker ``rank`` of a
+    shot-sharded multi-worker run: it tracks shots ``rank, rank+world, …``
+    into ``<output>.part<rank>``; rank 0 then waits for the other parts
+    and merges them deterministically (``parallel/multihost.py``).
+    """
     from ..core import Annotation, formats, load
+    from ..parallel.multihost import (init_distributed, merge_tracking_parts,
+                                      part_path)
     from ..pipeline.face_tracking import FaceTracking
     from ..utils.profiling import StageStats
-
-    if world > 1:
-        raise _not_ported("--world")
 
     tracking = FaceTracking(detect_min_size=detect_min_size,
                             detect_every=detect_every,
                             track_min_overlap_ratio=track_min_overlap_ratio,
                             track_min_confidence=track_min_confidence,
                             track_max_gap=track_max_gap, device=device)
+    init_distributed(coordinator, rank, world)
 
     with open(shot_path, "r") as fp:
         shot = load(fp)
@@ -169,18 +188,64 @@ def track(video, shot_path, output,
             if shots:
                 video.start = max(video.start, shots[0].start)
 
-    stats = StageStats("track")
-    with open(output, "a" if resume else "w") as foutput:
-        for offset, trk in enumerate(tracking(video, shots)):
-            identifier = next_id + offset
+    use_stream = _streaming() and tracking.detect_func is None
+    if use_stream:
+        from ..pipeline.streaming import StreamLegs, stream_tracks
+
+        legs = StreamLegs() if legs is None else legs
+
+    def my_tracks():
+        """This worker's tracks: every shot, or those with index mod world
+        == rank.  The streaming engine plans over the FULL frame grid
+        (decode is sequential anyway and overlaps compute) and drops
+        unassigned shots before any device work, so every worker's frame
+        partition, detections and scans are those of the single-worker
+        run; the per-shot engine seeks to each of its shots."""
+        mine = (lambda i: i % world == rank) if world > 1 else None
+        if use_stream:
+            return stream_tracks(tracking, video, shots, legs=legs,
+                                 segment_filter=mine)
+        if mine is None:
+            return tracking(video, shots)
+        return _per_shot_tracks(tracking, video,
+                                [s for i, s in enumerate(shots) if mine(i)])
+
+    def write(foutput, first_id):
+        for offset, trk in enumerate(my_tracks()):
             for t, (left, top, right, bottom), status in trk:
                 foutput.write(formats.FACE_TEMPLATE.format(
-                    t=t, identifier=identifier, status=status,
+                    t=t, identifier=first_id + offset, status=status,
                     left=left, right=right, top=top, bottom=bottom))
             stats.add(n=len(trk), tracks=1)
             foutput.flush()
+
+    stats = StageStats("track")
+    if world > 1:
+        with open(part_path(output, rank), "w") as foutput:
+            write(foutput, 0)
+        if rank == 0:
+            # include_existing folds the pre-restart tracks kept by
+            # --resume into the merge (the merge rewrites `output`)
+            merge_tracking_parts(output, world, wait_s=3600.0,
+                                 include_existing=resume)
+    else:
+        with open(output, "a" if resume else "w") as foutput:
+            write(foutput, next_id)
+    if verbose and use_stream:
+        print("stream legs:", legs.as_dict(), file=sys.stderr)
     if verbose:
         print(stats.finish(), file=sys.stderr)
+
+
+def _per_shot_tracks(tracking, video, my_shots):
+    """The per-shot engine over a subset of shots, each sought on its own."""
+    old_start, old_end = video.start, video.end
+    try:
+        for seg in my_shots:
+            video.start, video.end = seg.start, seg.end
+            yield from tracking(video, [seg])
+    finally:
+        video.start, video.end = old_start, old_end
 
 
 EXTRACT_FACES_PER_BATCH = 64  # faces per device dispatch
@@ -229,24 +294,23 @@ def extract_batch(video, chunk, predictor, embedder, chip_fn,
 
 def extract(video, landmark_model, embedding_model, tracking_path,
             landmark_output, embedding_output, exact_chips=False,
-            verbose=False, device: DeviceLike = None, compute_dtype=None,
-            stats=None):
+            verbose=False, legs=None, device: DeviceLike = None,
+            compute_dtype=None, stats=None):
     """Landmarks + embeddings for tracked faces (reference
     `pyannote-face.py:271-314`).
 
-    The tracked faces are grouped by time and taken 64 at a time.  A
-    batch's unique frames are stacked once and sent to the device once;
-    the cascade, the chip cut and the embedder run there, and landmarks
-    and embeddings come back in one read per batch.  The JAX engine pads
-    the frame axis to a power of two and the face axis to 64 to bound its
-    compilations; nothing is compiled per shape here and a face's result
-    does not depend on its batch, so the last batch is simply shorter.
+    By default the streaming engine
+    (``pipeline/streaming.py:stream_extract``): ONE sequential decode pass
+    pipelined against the YUV420 transfer and the device's work; the
+    cascade, the chip cut (straight from the YUV planes) and the embedder
+    are enqueued per batch, and landmarks and embeddings come back in one
+    read per 64 faces.  ``legs``, a ``StreamLegs``, receives its seconds.
+    ``PYV_NO_STREAM=1`` selects the chunked engine (``_extract_chunked``).
 
     ``compute_dtype`` (default bfloat16) is the embedder's conv dtype.
-    ``stats``, a dict, receives the seconds spent per part (``load``: the
-    tracking file and the two models, ``frames``: stacking and copy,
-    ``cascade``, ``chips``, ``embedder``, ``write``);
-    timing them synchronises the device after each part.
+    ``stats``, a dict, receives the seconds spent loading the tracking
+    file and the two models (``load``) and, from the chunked engine, per
+    part; timing them synchronises the device after each part.
     """
     import time
 
@@ -254,7 +318,6 @@ def extract(video, landmark_model, embedding_model, tracking_path,
     import torch
 
     from ..core import formats
-    from ..models.chip import extract_chips, extract_chips_exact
     from ..models.embedder import FaceEmbedder
     from ..models.landmarks import LandmarkPredictor
     from ..utils.device import resolve_device
@@ -271,19 +334,61 @@ def extract(video, landmark_model, embedding_model, tracking_path,
         return now
 
     tick = time.perf_counter()
-    frame_width, frame_height = video.frame_size
     points = formats.read_tracking(tracking_path)
     predictor = LandmarkPredictor(landmark_model or None, device=device)
     embedder = FaceEmbedder(
         embedding_model or None, device=device,
         compute_dtype=torch.bfloat16 if compute_dtype is None else compute_dtype)
-    chip_fn = extract_chips_exact if exact_chips else extract_chips
     lap("load", tick)
 
+    if not _streaming():
+        _extract_chunked(video, predictor, embedder, points, landmark_output,
+                         embedding_output, exact_chips, lap)
+    else:
+        from ..pipeline.streaming import StreamLegs, stream_extract
+
+        legs = StreamLegs() if legs is None else legs
+        size = np.asarray(video.frame_size)
+        with open(landmark_output, "w") as flandmark, \
+             open(embedding_output, "w") as fembedding:
+            for T, p, lm, emb in stream_extract(
+                    video, points, predictor, embedder,
+                    exact_chips=exact_chips, legs=legs):
+                formats.write_landmarks_line(flandmark, T, p.identifier,
+                                             lm / size)
+                formats.write_embedding_line(fembedding, T, p.identifier, emb)
+                flandmark.flush()
+                fembedding.flush()
+        if verbose:
+            print("stream legs:", legs.as_dict(), file=sys.stderr)
+    if verbose:
+        print(f"extract: {len(points)} faces", file=sys.stderr)
+
+
+def _extract_chunked(video, predictor, embedder, points, landmark_output,
+                     embedding_output, exact_chips, lap):
+    """The chunked engine: the tracked faces are grouped by time and taken
+    64 at a time.  A batch's unique frames are read by timestamp, stacked
+    once and sent to the device once; the cascade, the chip cut (from the
+    RGB frames) and the embedder run there, and landmarks and embeddings
+    come back in one read per batch.  The JAX engine pads the frame axis
+    to a power of two and the face axis to 64 to bound its compilations;
+    nothing is compiled per shape here and a face's result does not depend
+    on its batch, so the last batch is simply shorter.  ``lap`` receives
+    the parts ``frames`` (stacking and copy), ``cascade``, ``chips``,
+    ``embedder`` and ``write``."""
+    import time
+
+    import numpy as np
+
+    from ..core import formats
+    from ..models.chip import extract_chips, extract_chips_exact
+
+    chip_fn = extract_chips_exact if exact_chips else extract_chips
     # flatten to (T, point) preserving group order
     flat = [(T, p) for T, group in formats.iter_tracking_by_time(points)
             for p in group]
-    size = np.asarray([frame_width, frame_height])
+    size = np.asarray(video.frame_size)
 
     with open(landmark_output, "w") as flandmark, \
          open(embedding_output, "w") as fembedding:
@@ -299,8 +404,6 @@ def extract(video, landmark_model, embedding_model, tracking_path,
             flandmark.flush()
             fembedding.flush()
             lap("write", tick)
-    if verbose:
-        print(f"extract: {len(flat)} faces", file=sys.stderr)
 
 
 def main(argv=None, device: DeviceLike = None):
@@ -344,8 +447,6 @@ def main(argv=None, device: DeviceLike = None):
 
     if arguments["demo"]:
         raise _not_ported("demo")
-    if int(arguments["--world"]) > 1:
-        raise _not_ported("--world")
 
     device = resolve_device(device)
     verbose = bool(arguments["--verbose"])

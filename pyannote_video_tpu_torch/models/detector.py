@@ -212,6 +212,16 @@ class FaceDetector:
                                    boxes, compute_dtype=self.compute_dtype)
         return scores, boxes
 
+    def select(self, scores: np.ndarray,
+               boxes: np.ndarray) -> List[Tuple[float, float, float, float]]:
+        """Host threshold + NMS over ONE frame's candidates (scores [K],
+        boxes [K, 4], as read back from ``candidates``): the detections."""
+        mask = scores > self.threshold
+        cand_boxes, cand_scores = boxes[mask], scores[mask]
+        keep = (nms(cand_boxes, cand_scores, iou_threshold=self.nms_iou)
+                if len(cand_boxes) else [])
+        return [tuple(float(v) for v in cand_boxes[j]) for j in keep]
+
     def detect_batch(self, frames: np.ndarray) -> List[List[Tuple[float, float, float, float]]]:
         """Detect faces in a frame batch [B, H, W, 3] uint8.
 
@@ -223,17 +233,7 @@ class FaceDetector:
         scores_t, boxes_t = self.candidates(frames_t)
         scores = scores_t.cpu().numpy()   # [B, K_total]
         boxes = boxes_t.cpu().numpy()     # [B, K_total, 4]
-
-        out: List[List[Tuple[float, float, float, float]]] = []
-        for i in range(len(scores)):
-            mask = scores[i] > self.threshold
-            cand_boxes = boxes[i][mask]
-            cand_scores = scores[i][mask]
-            keep = nms(cand_boxes, cand_scores, iou_threshold=self.nms_iou) if len(
-                cand_boxes
-            ) else []
-            out.append([tuple(float(v) for v in cand_boxes[j]) for j in keep])
-        return out
+        return [self.select(scores[i], boxes[i]) for i in range(len(scores))]
 
     def __call__(self, frame: np.ndarray):
         """Single-frame detection."""

@@ -1,9 +1,8 @@
 """Batched device color conversion + resize (the shot stage's ingest).
 
-Port of ``pyannote_video_tpu/ops/color.py`` (``to_gray``,
-``resize_bilinear``, ``ingest_gray``): whole frame batches are converted
-and resized on the device as a few tensor ops.  The YUV 4:2:0 functions
-of that module belong to the tracking stage and are not ported yet.
+Port of ``pyannote_video_tpu/ops/color.py``: whole frame batches are
+converted and resized on the device as a few tensor ops, and the YUV 4:2:0
+functions at the end are the streaming path's wire format.
 """
 
 from __future__ import annotations
@@ -15,6 +14,7 @@ import torch
 
 # ITU-R BT.601 luma — matches cv2.COLOR_RGB2GRAY (see utils/imops.py).
 _LUMA = (0.299, 0.587, 0.114)
+_PACK_FRAMES = 4     # frames per pass of `rgb_to_yuv420`
 
 
 def to_gray(frames: torch.Tensor) -> torch.Tensor:
@@ -72,3 +72,101 @@ def ingest_gray(frames_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor
     Gray-then-resize order matches the shot stage (`structure/shot.py:71-73`).
     """
     return resize_bilinear(to_gray(frames_u8), out_h, out_w)
+
+
+def ingest_gray_resize_first(frames_u8: torch.Tensor, out_h: int,
+                             out_w: int) -> torch.Tensor:
+    """Resize-then-gray (the thread stage order,
+    `structure/thread.py:142-143`)."""
+    return to_gray(resize_bilinear(frames_u8.to(torch.float32), out_h, out_w))
+
+
+# ---------------------------------------------------------------------------
+# YUV 4:2:0 ingest — the streaming pipeline's wire format
+# ---------------------------------------------------------------------------
+# Video codecs emit YUV 4:2:0 natively; shipping it to the device instead
+# of RGB halves the host→device bytes (1.5 B/px vs 3 B/px), and the Y plane
+# is (up to the fixed studio-swing affine) the BT.601 gray the tracking
+# stage consumes, so gray conversion disappears from the ingest path.  The
+# wire convention is LIMITED-range BT.601 (Y in [16, 235]), what typical
+# codec output (ffmpeg yuv420p) uses.
+
+
+def yuv_luma_to_gray(y: torch.Tensor) -> torch.Tensor:
+    """Limited-range luma plane → full-range float32 gray (= `to_gray`).
+
+    gray = (Y − 16) · 255/219, clipped, so that thresholds calibrated on
+    0-255 gray hold unchanged on the streaming path.  The result is a new
+    tensor, never a view of ``y``.
+    """
+    return ((y.to(torch.float32) - 16.0) * (255.0 / 219.0)).clamp(0.0, 255.0)
+
+
+def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor,
+                  v: torch.Tensor) -> torch.Tensor:
+    """YUV 4:2:0 (limited range) → float32 RGB in [0, 255], on ``y``'s device.
+
+    y [B, H, W] uint8, u/v [B, ceil(H/2), ceil(W/2)] uint8 → rgb [B, H, W, 3].
+    Chroma is upsampled by nearest-neighbour 2× (I420 co-siting) and cut to
+    the luma's size (odd sizes), then the fixed BT.601 inverse is applied
+    elementwise, in the JAX version's association order.
+    """
+    H, W = y.shape[1], y.shape[2]
+    yf = (y.to(torch.float32) - 16.0) * 1.164
+
+    def up(c):
+        c = c.to(torch.float32)
+        c = c.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return c[:, :H, :W] - 128.0
+
+    uf, vf = up(u), up(v)
+    r = yf + 1.596 * vf
+    g = yf - 0.392 * uf - 0.813 * vf
+    b = yf + 2.017 * uf
+    return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
+
+def rgb_to_yuv420(frames_u8: np.ndarray) -> tuple:
+    """Host-side RGB uint8 batch [B, H, W, 3] → (Y [B, H, W], U, V
+    [B, H/2, W/2]) I420 planes, uint8 numpy arrays; H and W even.
+
+    Stand-in for a decoder's native YUV output.  Limited-range BT.601,
+    chroma as the 2×2 box average, rounded half to even: byte for byte the
+    planes of the JAX package's NumPy ``rgb_to_yuv420``.  Each float32
+    operation is the NumPy one in the same order (no fused multiply-add;
+    the four chroma samples are summed as (a00 + a01) + (a10 + a11), the
+    order NumPy's mean over the two 2-axes takes), but it runs as torch CPU
+    operations on whole planes: they use every core and release the
+    interpreter lock, so a packer thread overlaps the other threads.
+    """
+    x = torch.from_numpy(np.ascontiguousarray(frames_u8))
+    B, H, W, _ = x.shape
+    out = (np.empty((B, H, W), np.uint8),
+           np.empty((B, H // 2, W // 2), np.uint8),
+           np.empty((B, H // 2, W // 2), np.uint8))
+
+    def plane(r, g, b, offset, cr, cg, cb):
+        # ((offset + cr·r) + cg·g) + cb·b, one rounding per operation
+        p = r * cr
+        p += offset
+        p += g * cg
+        p += b * cb
+        return p
+
+    def box(p):
+        s = p[:, 0::2, 0::2] + p[:, 0::2, 1::2]
+        s += p[:, 1::2, 0::2] + p[:, 1::2, 1::2]
+        s /= 4.0
+        return s
+
+    # a few frames at a time: the float32 planes then stay in the cache
+    for i in range(0, B, _PACK_FRAMES):
+        r, g, b = (x[i:i + _PACK_FRAMES, ..., c].to(torch.float32)
+                   for c in range(3))
+        planes = (plane(r, g, b, 16.0, 0.257, 0.504, 0.098),
+                  box(plane(r, g, b, 128.0, -0.148, -0.291, 0.439)),
+                  box(plane(r, g, b, 128.0, 0.439, -0.368, -0.071)))
+        for dst, p in zip(out, planes):
+            torch.from_numpy(dst[i:i + _PACK_FRAMES]).copy_(
+                p.round_().clamp_(0, 255))
+    return out

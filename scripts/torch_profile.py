@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's shot, detect, track and extract paths, on one GPU.
+"""Where the time goes in the PyTorch port's shot, detect, track, extract and streaming paths, on one GPU.
 
 Run from the repository root: ``python3 scripts/torch_profile.py [--out
 FILE]``.  It uses the same 1280x720 synthetic episode as ``chip_smoke.py``
@@ -18,7 +18,12 @@ and ``torch.profiler`` (CUPTI) for device times:
 * extract: one 64-face batch of ``face_cli.extract`` (64 frames of 720p
   stacked and copied, the 15-stage cascade, the chip cut, the bfloat16
   ResNet-29, one read back), and the cascade and the embedder alone on
-  inputs that already lie on the card.
+  inputs that already lie on the card;
+* stream_track, stream_extract: the default (streaming) engines of
+  ``face_cli.track`` and ``face_cli.extract`` over the first 64 frames (two
+  shots): their ``StreamLegs``, and the device's operations by CUDA stream,
+  so that the host→device copies show on the shipper's side stream beside
+  the kernels on the main one.
 
 For each path: wall seconds, device-busy seconds (the sum of kernel and
 copy times on the single stream), the idle share, and the top device
@@ -66,7 +71,27 @@ def idle_gaps(prof, top: int = 5) -> dict:
             "median_gap_us": float(gaps[len(gaps) // 2]) if gaps else None}
 
 
-def profiled(fn, top: int = 8, gaps: bool = False):
+def by_stream(prof) -> dict:
+    """Device operations of a profile by CUDA stream: count and time of all
+    of them, and of the host→device copies among them."""
+    from torch.autograd import DeviceType
+
+    streams = {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        row = streams.setdefault(str(evt.device_resource_id()), {
+            "ops": 0, "device_ms": 0.0, "h2d_copies": 0, "h2d_ms": 0.0})
+        ms = evt.duration_ns() * 1e-6
+        row["ops"] += 1
+        row["device_ms"] += ms
+        if "Memcpy HtoD" in evt.name():
+            row["h2d_copies"] += 1
+            row["h2d_ms"] += ms
+    return streams
+
+
+def profiled(fn, top: int = 8, gaps: bool = False, streams: bool = False):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -92,6 +117,8 @@ def profiled(fn, top: int = 8, gaps: bool = False):
     }
     if gaps:
         result["idle_gaps"] = idle_gaps(prof)
+    if streams:
+        result["streams"] = by_stream(prof)
     return result
 
 
@@ -205,6 +232,37 @@ def main() -> int:
             lambda: predictor.predict_device(stack, fidx, boxes), gaps=True),
         "chips": profiled(lambda: extract_chips(stack, fidx, landmarks)),
         "embedder": profiled(lambda: embedder.embed_device(chips), gaps=True)}
+
+    # the default (streaming) engines over the first two shots
+    import tempfile
+
+    from pyannote_video_tpu_torch.cli.face_cli import extract, track
+    from pyannote_video_tpu_torch.core import Timeline, dump
+    from pyannote_video_tpu_torch.pipeline.streaming import StreamLegs
+
+    n = 64
+    with tempfile.TemporaryDirectory() as tmp:
+        shot_json, tracking = f"{tmp}/shot.json", f"{tmp}/tracking.txt"
+        with open(shot_json, "w") as fp:
+            dump(Timeline([Segment(0.0, 32 / fps), Segment(32 / fps, n / fps)]), fp)
+
+        def run_track(legs=None):
+            track(Video(frames[:n], fps=fps), shot_json, tracking,
+                  detect_every=chip_smoke.DETECT_EVERY, legs=legs, device="cuda")
+
+        def run_extract(legs=None):
+            extract(Video(frames[:n], fps=fps), "", "", tracking,
+                    f"{tmp}/landmarks.txt", f"{tmp}/embeddings.txt", legs=legs,
+                    device="cuda")
+
+        for name, run in (("stream_track", run_track),
+                          ("stream_extract", run_extract)):
+            run()                                                # warm-up
+            legs = StreamLegs()
+            result[name] = {"frames": n, **profiled(lambda: run(legs), gaps=True,
+                                                    streams=True),
+                            "legs": legs.as_dict(),
+                            "pinned_bytes": legs.pinned_bytes}
 
     text = json.dumps(result)
     print(text)

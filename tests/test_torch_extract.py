@@ -539,13 +539,16 @@ class TestChain:
             jlandmarks.LandmarkPredictor(), _F32JaxEmbedder(),
             jformats.read_tracking(tracking), paths["jlm"], paths["jemb"],
             False)
-        face_cli.extract(Video(episode.frames, fps=episode.fps), "", "",
-                         tracking, paths["lm"], paths["emb"], device="cpu",
-                         compute_dtype=torch.float32)
-        face_cli.extract(Video(episode.frames, fps=episode.fps), "", "",
-                         tracking, paths["xlm"], paths["xemb"],
-                         exact_chips=True, device="cpu",
-                         compute_dtype=torch.float32)
+        # the chunked engine, which is what ``_extract_legacy`` is
+        with pytest.MonkeyPatch.context() as patch:
+            patch.setenv("PYV_NO_STREAM", "1")
+            face_cli.extract(Video(episode.frames, fps=episode.fps), "", "",
+                             tracking, paths["lm"], paths["emb"], device="cpu",
+                             compute_dtype=torch.float32)
+            face_cli.extract(Video(episode.frames, fps=episode.fps), "", "",
+                             tracking, paths["xlm"], paths["xemb"],
+                             exact_chips=True, device="cpu",
+                             compute_dtype=torch.float32)
         return tracking, paths, (W, H)
 
     def test_same_lines_in_the_same_order(self, chain, episode):
@@ -625,7 +628,7 @@ class TestChain:
 
     @pytest.mark.parametrize("argv", [
         ["demo", "clip.avi", "tracking.txt", "out.avi"],
-        ["track", "--world=2", "clip.avi", "shot.json", "tracking.txt"]])
+        ["demo", "--label=labels.txt", "clip.avi", "tracking.txt", "out.avi"]])
     def test_unported_commands_name_their_roadmap_item(self, argv):
         with pytest.raises(SystemExit, match="ROADMAP"):
             face_cli.main(argv, device="cpu")

@@ -380,10 +380,10 @@ class TestFaceCLI:
 
 class TestUnported:
     @pytest.mark.parametrize("argv,item", [
-        (["track", "--world=2", "v.avi", "s.json", "t.txt"], "Streaming"),
-        (["extract", "--world=2", "v.avi", "t.txt", "", "", "l.txt", "e.txt"],
-         "Streaming"),
         (["demo", "v.avi", "t.txt", "o.avi"], "demo"),
+        (["demo", "--world=2", "v.avi", "t.txt", "o.avi"], "demo"),
+        (["demo", "--height=200", "--from=1", "v.avi", "t.txt", "o.avi"],
+         "demo"),
     ])
     def test_unported_commands_exit_nonzero(self, argv, item):
         from pyannote_video_tpu_torch.cli.face_cli import main
@@ -394,12 +394,17 @@ class TestUnported:
         assert "not ported" in str(exc.value.code)
         assert "ROADMAP" in str(exc.value.code) and item in str(exc.value.code)
 
-    def test_track_function_refuses_world(self, tmp_path):
+    def test_track_function_takes_world(self, tmp_path):
+        """``world`` > 1 is ported: a worker writes its part file, and only
+        rank 0 merges."""
         from pyannote_video_tpu_torch.cli.face_cli import track
 
-        with pytest.raises(SystemExit, match="not ported"):
-            track(Video(np.zeros((2, 48, 64, 3), np.uint8)), "s.json",
-                  str(tmp_path / "t.txt"), world=2, device="cpu")
+        shot_json = tmp_path / "s.json"
+        with open(shot_json, "w") as fp:
+            dump(Timeline([Segment(0.0, 0.04), Segment(0.04, 0.08)]), fp)
+        track(Video(np.zeros((2, 48, 64, 3), np.uint8)), str(shot_json),
+              str(tmp_path / "t.txt"), rank=1, world=2, device="cpu")
+        assert (tmp_path / "t.txt.part1").exists()
         assert not (tmp_path / "t.txt").exists()
 
     def test_usage_is_the_reference_text(self):
