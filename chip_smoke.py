@@ -95,10 +95,32 @@ printing one JSON line:
    compute each alone, from RGB batches and from a raw I420 file written
    and read back (``write_yuv_file``, ``yuv_file_batches``), and the same
    file streamed overlapped;
-15. kernels: per kernel its launches on the main path (both shot runs,
-   detect, stream_track, stream_extract and cluster, the counts reset just
-   before), error, times, bound, and the registers, spills and shared
-   memory ptxas reports for each instance.
+15. thread (on the main path, after cluster): an 8-shot x 20-frame 720p
+   episode whose shots thread as ``[0,1,0,1,2,3,2,3]``, chained
+   ``do_shot`` -> ``shot.json`` -> ``do_thread`` (the CLI defaults: height
+   200, lookahead 24, min_match 20, 500 keypoints) -> ``thread.json`` ->
+   ``do_scene`` -> ``scene.json``.  Shots at the true cuts; thread pairwise
+   F1 1.0 against the pattern; two scenes, shots 0-3 and 4-7; both files
+   byte-equal to a CPU run of the port from the same ``shot.json``; ORB on
+   the collar frames and on 16 frames, two per shot, card against CPU
+   (keypoint positions and ``valid``
+   equal, angle bins equal on >= ORB_ANGLE_SHARE of the valid slots,
+   descriptor bits equal on >= ORB_DESC_SHARE); every pair's count equal
+   between card and CPU, same-thread pairs >= 40, cross-thread <= 16.  It
+   prints launches, device ms, wall ms and bytes to move of one
+   ``detect_and_describe`` at [16, 200, 356] and of one 64-pair
+   ``batched_ratio_matches``;
+16. farneback (beside the main path): ``Shot(method="farneback")`` at
+   height 50 on the 10-shot episode, boundaries at the true cuts at
+   threshold FARNEBACK_THRESHOLD and equal to a CPU run; one [257, 50, 89]
+   chunk through ``farneback_flow`` and ``warped_residual``, card against
+   CPU (flows within FLOW_TOL px on >= FLOW_SHARE of the pixels, the
+   residuals within rtol FLOW_DFD_RTOL); launches, device ms and wall ms of
+   the chunk;
+17. kernels: per kernel its launches on the main path (both shot runs,
+   detect, stream_track, stream_extract, cluster and thread, the counts
+   reset just before), error, times, bound, and the registers, spills and
+   shared memory ptxas reports for each instance.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, so the script exits non-zero without printing it.
@@ -137,6 +159,14 @@ DIST_TOL = 1e-5
 CLUSTER_THRESHOLD = 0.6
 STREAM_BOX_TOL = 2.5 / 120.0    # streamed vs per-shot boxes, normalised
 STREAM_LANDMARK_TOL = 0.02      # streamed vs chunked landmarks, normalised
+THREAD_PATTERN = [0, 1, 0, 1, 2, 3, 2, 3]
+ORB_DESC_SHARE = 0.999      # descriptor bits equal, card vs CPU
+ORB_ANGLE_SHARE = 0.999     # angle bins equal on valid slots, card vs CPU
+SAME_THREAD_MIN, CROSS_THREAD_MAX = 40, 16
+FARNEBACK_THRESHOLD = 5.0   # cut peaks 13.7-18.6, other frames <= 2.0
+FLOW_TOL = 1e-3             # px, Farneback flow card vs CPU
+FLOW_SHARE = 0.999          # of the pixels (textureless ones sit at the guard)
+FLOW_DFD_RTOL = 1e-4
 # the tie patterns of the association tests
 TIE_PATTERNS = [
     [[0.50, 0.45], [0.40, 0.00]], [[0.51, 0.49], [0.49, 0.51]],
@@ -341,7 +371,7 @@ def phase_dfd(ptxas: dict):
     }
 
 
-def make_episode():
+def make_episode(n_shots: int = 10, shot_frames: int = 32, pattern=None):
     """A 1280x720 episode, rendered at 640x360 and upscaled 2x on the card
     (rendering at full size costs ~4x the host time); boxes scale with it.
     Returns frames, fps, cuts, the true boxes per frame, and per frame the
@@ -351,8 +381,9 @@ def make_episode():
     from pyannote_video_tpu_torch.ops.color import resize_bilinear
     from pyannote_video_tpu_torch.utils.synthetic import synthetic_episode
 
-    ep = synthetic_episode(n_shots=10, shot_frames=32, width=640, height=360,
-                           n_identities=6, faces_per_shot=1, seed=SEED)
+    ep = synthetic_episode(n_shots=n_shots, shot_frames=shot_frames, width=640,
+                           height=360, n_identities=6, faces_per_shot=1,
+                           seed=SEED, thread_pattern=pattern)
     frames = np.empty((len(ep.frames), 720, 1280, 3), dtype=np.uint8)
     for i in range(0, len(ep.frames), 64):
         up = resize_bilinear(torch.from_numpy(ep.frames[i:i + 64]).cuda(), 720, 1280)
@@ -1395,6 +1426,188 @@ def phase_cluster(tmp, ordered, fps, truth):
           "card_equals_cpu": True, "seconds": seconds})
 
 
+def orb_bytes(B: int, H: int, W: int, K: int) -> int:
+    """Bytes one ``detect_and_describe`` must move: the gray frames read
+    once, keypoints, ``valid`` and float32 descriptors written once."""
+    return 4 * B * H * W + B * K * (3 * 4 + 1 + 256 * 4)
+
+
+def phase_thread(tmp):
+    """shot -> thread -> scene through stage files, card against CPU."""
+    import torch
+
+    from pyannote_video_tpu_torch.cli.structure_cli import (do_scene, do_shot,
+                                                            do_thread)
+    from pyannote_video_tpu_torch.core import load
+    from pyannote_video_tpu_torch.io.video import Video
+    from pyannote_video_tpu_torch.ops.color import ingest_gray_resize_first
+    from pyannote_video_tpu_torch.ops.orb import (batched_ratio_matches,
+                                                  detect_and_describe)
+    from pyannote_video_tpu_torch.pipeline.thread import Thread
+    from pyannote_video_tpu_torch.utils.metrics import pairwise_prf
+
+    frames, fps, cuts = make_episode(8, 20, THREAD_PATTERN)[:3]
+    video = Video(frames, fps=fps)
+    d = Path(tmp, "thread")
+    d.mkdir()
+    t0 = time.perf_counter()
+    do_shot(video, str(d / "shot.json"), device="cuda")
+    shot_s = time.perf_counter() - t0
+    with open(d / "shot.json") as fp:
+        shots = list(load(fp))
+    found = [s.end for s in shots[:-1]]
+    check(len(found) == len(cuts) and all(
+        abs(c - g) <= 1.5 / fps for c, g in zip(cuts, found)),
+        f"thread episode: boundaries {found} at cuts {cuts}")
+
+    files = {}
+    for dev in ("cuda", "cpu"):
+        thread_json, scene_json = d / f"thread_{dev}.json", d / f"scene_{dev}.json"
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        do_thread(video, str(d / "shot.json"), str(thread_json), device=dev)
+        seconds = time.perf_counter() - t0
+        do_scene(video, str(thread_json), str(scene_json))
+        files[dev] = (thread_json.read_bytes(), scene_json.read_bytes(), seconds)
+    check(files["cuda"][:2] == files["cpu"][:2],
+          "thread.json and scene.json: card == CPU, byte for byte")
+    with open(d / "thread_cuda.json") as fp:
+        threads = list(load(fp).itertracks(yield_label=True))
+    with open(d / "scene_cuda.json") as fp:
+        scenes = [label for _, _, label in load(fp).itertracks(yield_label=True)]
+    check(len(threads) == len(shots) == len(scenes), "one label per shot")
+    f1 = pairwise_prf({i: lab for i, (_, _, lab) in enumerate(threads)},
+                      dict(enumerate(THREAD_PATTERN)))["f1"]
+    check(f1 == 1.0, f"thread pairwise F1 {f1}")
+    check(len(set(scenes[:4])) == 1 and len(set(scenes[4:])) == 1
+          and scenes[0] != scenes[4], f"scenes {scenes}")
+
+    # ORB on the collar frames, and every pair's count, card against CPU
+    feats, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        th = Thread(video, shot=shots, lookahead=24, device=dev)
+        th._compute_features(shots)
+        scorable = th._scorable_pairs(shots)
+        counts[dev] = th._pair_counts(scorable)
+    # the collar frames (20-frame shots: a shot's two collar times are its
+    # middle frame, so fewer than 16), then a full batch of 16 frames, two
+    # per shot, at which the programs are timed
+    times = th._collar_times(shots)
+    spread = [s.start + f * s.duration for s in shots for f in (0.25, 0.75)]
+    for batch in (times, spread):
+        raw = torch.from_numpy(np.stack([video(t) for t in batch])).cuda()
+        grays = ingest_gray_resize_first(raw, th._out_h, th._out_w)
+        for dev in ("cuda", "cpu"):
+            feats.setdefault(dev, []).append(
+                [a.cpu() for a in detect_and_describe(grays.to(dev))])
+    check(tuple(grays.shape) == (16, 200, 356), f"ORB batch {tuple(grays.shape)}")
+    k, v, desc = (torch.cat(a) for a in zip(*feats["cuda"]))
+    k_cpu, v_cpu, desc_cpu = (torch.cat(a) for a in zip(*feats["cpu"]))
+    check(torch.equal(v, v_cpu), "ORB valid: card == CPU")
+    check(torch.equal(k[..., :2], k_cpu[..., :2]), "ORB keypoints: card == CPU")
+    angle_share = float((k[..., 2] == k_cpu[..., 2])[v].float().mean())
+    desc_share = float((desc == desc_cpu).float().mean())
+    check(angle_share >= ORB_ANGLE_SHARE, f"ORB angle bins equal on {angle_share}")
+    check(desc_share >= ORB_DESC_SHARE, f"ORB descriptor bits equal on {desc_share}")
+    check(counts["cuda"] == counts["cpu"], "pair counts: card == CPU")
+    pairs = [(shots.index(a), shots.index(b)) for a, b, _, _ in scorable]
+    same = [n for (i, j), n in zip(pairs, counts["cuda"])
+            if THREAD_PATTERN[i] == THREAD_PATTERN[j]]
+    cross = [n for (i, j), n in zip(pairs, counts["cuda"])
+             if THREAD_PATTERN[i] != THREAD_PATTERN[j]]
+    check(len(pairs) == 28 and min(same) >= SAME_THREAD_MIN
+          and max(cross) <= CROSS_THREAD_MAX,
+          f"margins: same-thread {same}, cross-thread {cross}")
+
+    # launches, device time, wall time and bytes of the two programs
+    store, store_valid = th._feature_store()
+    rows = torch.arange(64) % len(times)
+    r1, r2 = rows.cuda(), rows.roll(1).cuda()
+    d1, v1 = store.cuda()[r1], store_valid.cuda()[r1]
+    d2, v2 = store.cuda()[r2], store_valid.cuda()[r2]
+    B, H, W = grays.shape
+    K = k.shape[1]
+    programs = {}
+    for name, fn, nbytes, ops in (
+            ("detect_and_describe", lambda: detect_and_describe(grays),
+             orb_bytes(B, H, W, K), None),
+            ("batched_ratio_matches_64", lambda: batched_ratio_matches(d1, v1, d2, v2),
+             d1.numel() * 2 + v1.numel() * 2 + 64 * 4, 2 * 64 * K * K * 256)):
+        ms = wall_ms(fn)
+        launches, device_ms = device_profile(fn)
+        programs[name] = {"launches": launches, "device_ms": device_ms,
+                          "wall_ms": ms, "bytes": nbytes,
+                          "hbm_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        if ops:
+            programs[name].update(f32_ops=ops, f32_ms=ops / F32_OPS_PER_S * 1e3)
+    emit({"phase": "thread", "size": [1280, 720], "frames": len(frames),
+          "shots": len(shots), "orb_batch": [B, H, W], "max_keypoints": K,
+          "pairs": len(pairs), "thread_f1": f1, "threads": sorted(
+              {lab for _, _, lab in threads}), "scenes": scenes,
+          "same_thread_min": min(same), "cross_thread_max": max(cross),
+          "collar_frames": len(times), "orb_frames_compared": len(v),
+          "orb_valid_per_frame": [int(n) for n in v.sum(dim=1)],
+          "orb_angles_differing": int((k[..., 2] != k_cpu[..., 2])[v].sum()),
+          "orb_desc_bits_differing": int((desc != desc_cpu).sum()),
+          "orb_angle_share": angle_share, "orb_desc_share": desc_share,
+          "files_card_equal_cpu": True, "do_shot_s": shot_s,
+          "do_thread_s": files["cuda"][2], "do_thread_cpu_s": files["cpu"][2],
+          **programs})
+
+
+def phase_farneback(frames, fps, cuts):
+    """``Shot(method="farneback")`` and one shot chunk's flow, card
+    against CPU."""
+    import torch
+
+    from pyannote_video_tpu_torch.io.video import Video
+    from pyannote_video_tpu_torch.ops.color import ingest_gray
+    from pyannote_video_tpu_torch.ops.flow import (dfd_series_farneback,
+                                                   farneback_flow,
+                                                   warped_residual)
+    from pyannote_video_tpu_torch.pipeline.shot import Shot
+
+    out = {"phase": "farneback", "size": [1280, 720], "height": 50,
+           "threshold": FARNEBACK_THRESHOLD}
+    found = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found[dev] = [s.end for s in Shot(Video(frames, fps=fps), method="farneback",
+                                          threshold=FARNEBACK_THRESHOLD,
+                                          device=dev)][:-1]
+        out[f"shot_{dev}_s"] = time.perf_counter() - t0
+    check(len(found["cuda"]) == len(cuts) and all(
+        abs(c - g) <= 1.5 / fps for c, g in zip(cuts, found["cuda"])),
+        f"farneback boundaries {found['cuda']} at cuts {cuts}")
+    check(found["cuda"] == found["cpu"], "farneback boundaries: card == CPU")
+
+    gray = ingest_gray(torch.from_numpy(frames[:257]).cuda(), 50, 89)
+    prev, cur = gray[:-1], gray[1:]
+    flow = farneback_flow(prev, cur)
+    resid = warped_residual(prev, cur, flow)
+    flow_cpu = farneback_flow(prev.cpu(), cur.cpu())
+    resid_cpu = warped_residual(prev.cpu(), cur.cpu(), flow_cpu)
+    err = (flow.cpu() - flow_cpu).abs()
+    share = float((err <= FLOW_TOL).all(dim=-1).float().mean())
+    rel = float(((resid.cpu() - resid_cpu).abs() / resid_cpu.abs()).max())
+    check(share >= FLOW_SHARE, f"flow within {FLOW_TOL} px on {share}")
+    check(rel <= FLOW_DFD_RTOL, f"warped residual card vs CPU rel {rel}")
+    ms = wall_ms(lambda: dfd_series_farneback(gray))
+    launches, device_ms = device_profile(lambda: dfd_series_farneback(gray))
+    # bytes: the chunk read once and the series written once
+    nbytes = gray.numel() * 4 + (gray.shape[0] - 1) * 4
+    out.update(boundaries=len(found["cuda"]), cuts=len(cuts),
+               chunk=list(gray.shape), flow_share_within_tol=share,
+               flow_max_abs_err=float(err.max()), residual_max_rel_err=rel,
+               chunk_launches=launches, chunk_device_ms=device_ms,
+               chunk_wall_ms=ms, chunk_bytes=nbytes,
+               chunk_hbm_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    emit(out)
+
+
 def main() -> int:
     import torch
 
@@ -1424,12 +1637,16 @@ def main() -> int:
         shots = phase_stream_track(tmp, frames, fps, cuts, gt)
         ordered = phase_stream_extract(tmp, frames, fps, truth)
         phase_cluster(tmp, ordered, fps, truth)
+        # shot -> thread -> scene, on another episode
+        phase_thread(tmp)
         dfd_row["launches"] = dfd_series.launches
         check(dfd_row["launches"] > 0, "the shot path launched the dfd kernel")
-        # beside the main path: the older engines, two workers, the legs alone
+        # beside the main path: the older engines, two workers, the legs
+        # alone, the Farneback shot method
         phase_older_engines(tmp, frames, fps, shots)
         phase_world2(tmp, frames, fps)
         phase_isolate_legs(tmp, frames, fps)
+        phase_farneback(frames, fps, cuts)
 
     emit({"kernels": [dfd_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

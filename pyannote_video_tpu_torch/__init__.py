@@ -27,11 +27,12 @@ except Exception:  # not installed (running from a source checkout)
     except Exception:
         __version__ = "0.0.0+unknown"
 
-from .core import Segment, Timeline  # host-only, cheap
+from .core import Annotation, Segment, Timeline  # host-only, cheap
 
 _LAZY = {
     "Video": ("pyannote_video_tpu_torch.io.video", "Video"),
     "Shot": ("pyannote_video_tpu_torch.pipeline.shot", "Shot"),
+    "Thread": ("pyannote_video_tpu_torch.pipeline.thread", "Thread"),
     "FaceDetector": ("pyannote_video_tpu_torch.models.detector", "FaceDetector"),
     "TrackingByDetection": ("pyannote_video_tpu_torch.pipeline.tracking",
                             "TrackingByDetection"),
@@ -42,7 +43,7 @@ _LAZY = {
     "Face": ("pyannote_video_tpu_torch.pipeline.face", "Face"),
 }
 
-__all__ = ["__version__", "Segment", "Timeline"] + list(_LAZY)
+__all__ = ["__version__", "Annotation", "Segment", "Timeline"] + list(_LAZY)
 
 
 def __getattr__(name):

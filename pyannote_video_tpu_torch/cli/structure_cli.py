@@ -1,12 +1,14 @@
-"""pyannote-structure CLI on PyTorch: the ``shot`` command.
+"""pyannote-structure CLI on PyTorch: shot / thread / scene.
 
 Port of ``pyannote_video_tpu/cli/structure_cli.py`` with the same USAGE,
-flags, defaults and output schema.  ``thread`` and ``scene`` are not
-ported yet and exit with a message saying so.
+flags, defaults and output schemas.  ``thread`` runs at height 200 (the
+``--height`` flag is the shot stage's), ``scene`` groups the threads of a
+``thread.json`` into scenes on the host.
 
-Run as ``python -m pyannote_video_tpu_torch.cli.structure_cli shot <video>
-<output.json>``; it runs on the CUDA device (``main(argv, device="cpu")``
-from Python runs it on the CPU).
+Run as ``pyannote-structure-torch shot <video> <output.json>`` (or
+``python -m pyannote_video_tpu_torch.cli.structure_cli ...``); it runs on
+the CUDA device (``main(argv, device="cpu")`` from Python runs it on the
+CPU).
 """
 
 from __future__ import annotations
@@ -54,6 +56,32 @@ def do_shot(video, output, height=50, window=2.0, threshold=1.0,
         dump(shots, fp)
 
 
+def do_thread(video, shots_path, output, min_match=20, lookahead=24,
+              verbose=False, device: DeviceLike = None):
+    from ..core import dump, load
+    from ..pipeline.thread import Thread
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device)
+    with open(shots_path, "r") as fp:
+        shots = load(fp)
+    threads = Thread(video, shot=shots, lookahead=lookahead,
+                     min_match=min_match, verbose=verbose, device=device)
+    with open(output, "w") as fp:
+        dump(threads(), fp)
+
+
+def do_scene(video, threads_path, output, verbose=False):
+    """Scene segmentation from threads (host only)."""
+    from ..core import dump, load
+    from ..pipeline.thread import scenes_from_threads
+
+    with open(threads_path, "r") as fp:
+        threads = load(fp)
+    with open(output, "w") as fp:
+        dump(scenes_from_threads(threads), fp)
+
+
 def main(argv=None, device: DeviceLike = None):
     from .. import __version__
     from ..io.video import Video
@@ -82,21 +110,29 @@ def main(argv=None, device: DeviceLike = None):
         },
     )
 
-    for command in ("thread", "scene"):
-        if arguments[command]:
-            raise SystemExit(
-                f"pyannote-structure {command}: not ported to PyTorch yet "
-                "(ROADMAP: 'Thread/scene'); use pyannote_video_tpu's CLI")
-
-    device = resolve_device(device)
+    verbose = bool(arguments["--verbose"])
+    output = arguments["<output.json>"]
+    if not arguments["scene"]:
+        device = resolve_device(device)
     video = Video(arguments["<video>"], ffmpeg=arguments["--ffmpeg"] or None,
-                  verbose=bool(arguments["--verbose"]))
-    do_shot(video, arguments["<output.json>"],
-            height=int(arguments["--height"]),
-            window=float(arguments["--window"]),
-            threshold=float(arguments["--threshold"]),
-            noise_floor=float(arguments["--noise-floor"]),
-            device=device)
+                  verbose=verbose)
+
+    if arguments["shot"]:
+        do_shot(video, output,
+                height=int(arguments["--height"]),
+                window=float(arguments["--window"]),
+                threshold=float(arguments["--threshold"]),
+                noise_floor=float(arguments["--noise-floor"]),
+                device=device)
+
+    if arguments["thread"]:
+        do_thread(video, arguments["<shot.json>"], output,
+                  min_match=int(arguments["--min-match"]),
+                  lookahead=int(arguments["--lookahead"]),
+                  verbose=verbose, device=device)
+
+    if arguments["scene"]:
+        do_scene(video, arguments["<thread.json>"], output, verbose=verbose)
 
 
 if __name__ == "__main__":

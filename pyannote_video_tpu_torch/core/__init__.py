@@ -1,6 +1,7 @@
 """Host-side core: temporal structures, file formats, small algorithms."""
 
 from . import formats
+from .assignment import associate_by_overlap, hungarian
 from .graph import Graph, UnionFind, connected_components_from_edges
 from .segment import (
     Annotation,
@@ -22,6 +23,8 @@ __all__ = [
     "load",
     "loads",
     "string_generator",
+    "associate_by_overlap",
+    "hungarian",
     "formats",
     "Graph",
     "UnionFind",

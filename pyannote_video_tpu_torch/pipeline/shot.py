@@ -6,7 +6,8 @@ iterable of ``Segment`` shots), same decision rule (median-filter
 normalisation + threshold with consecutive-crossing suppression,
 pyannote-video `structure/shot.py:119-147`).  Per frame chunk the device
 converts and resizes the frames to gray (``ops/color.py``) and runs the
-DFD kernel (``ops/dfd.py``) over the ``[T, h, w]`` stack.
+DFD kernel (``ops/dfd.py``) over the ``[T, h, w]`` stack, or with
+``method="farneback"`` the flow-compensated residual (``ops/flow.py``).
 
 Note: pyannote-video passes ``(height, w*height/h)`` as OpenCV's
 ``(width, height)`` dsize, so it actually produces *width*-50 frames
@@ -26,6 +27,7 @@ from ..core import Segment
 from ..io.video import Video
 from ..ops.color import ingest_gray
 from ..ops.dfd import dfd_series
+from ..ops.flow import dfd_series_farneback
 from ..ops.medfilt import medfilt1d
 from ..utils.device import DeviceLike, resolve_device
 
@@ -47,7 +49,9 @@ class Shot:
     batch_size : int, optional
         Frames per host→device chunk.
     method : str, optional
-        Only ``"block"`` (the block-matching DFD) is ported.
+        ``"block"`` (the block-matching DFD kernel, the default) or
+        ``"farneback"`` (dense-flow-compensated residual, pyannote-video's
+        own formulation, `shot.py:75-99`).
     noise_floor : float, optional
         Additive floor of the median normalisation's denominator, in DFD
         units (``0.0`` restores the bare ``(y - med)/med`` rule).
@@ -60,11 +64,7 @@ class Shot:
                  batch_size: int = 256, pad_mode: str = "reflect",
                  method: str = "block", subpixel: bool = True,
                  noise_floor: float = 1.0, device: DeviceLike = None):
-        if method == "farneback":
-            raise NotImplementedError(
-                "method='farneback' is not ported to PyTorch yet "
-                "(ROADMAP: 'Farneback shot method')")
-        if method != "block":
+        if method not in ("block", "farneback"):
             raise ValueError(f"unknown DFD method: {method}")
         self.device = resolve_device(device)
         self.video = video
@@ -110,9 +110,12 @@ class Shot:
             else:
                 pair_ts = ts[1:]
             if gray.shape[0] >= 2:
-                dfd_out.append(dfd_series(gray, radius=self.radius,
-                                          block=self.block,
-                                          subpixel=self.subpixel))
+                if self.method == "farneback":
+                    dfd_out.append(dfd_series_farneback(gray))
+                else:
+                    dfd_out.append(dfd_series(gray, radius=self.radius,
+                                              block=self.block,
+                                              subpixel=self.subpixel))
                 ts_out.append(np.asarray(pair_ts))
             carry = gray[-1]
 

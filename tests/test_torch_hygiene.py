@@ -7,6 +7,8 @@
 * The tracking scan's bodies, the extract stage's device functions and the
   streaming path's device functions hold no call that waits for the device.
 * No module of the port imports ``cv2`` when it is imported.
+* The host modules the port copies from the JAX package stay copies: the
+  same code under their docstring, and the same answers on seeded inputs.
 """
 
 import ast
@@ -20,7 +22,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pyannote_video_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
-    ROOT / "scripts" / "dfd_probe.py", ROOT / "scripts" / "stream_ab.py"]
+    ROOT / "scripts" / "dfd_probe.py", ROOT / "scripts" / "stream_ab.py",
+    ROOT / "scripts" / "pyannote-face-torch.py",
+    ROOT / "scripts" / "pyannote-structure-torch.py"]
 FORBIDDEN = ("jax", "jaxlib", "pyannote_video_tpu")
 
 
@@ -80,6 +84,28 @@ def _main(tmp_path):
     from pyannote_video_tpu_torch.cli.structure_cli import main
 
     main(["shot", str(tmp_path / "missing.avi"), str(tmp_path / "out.json")])
+
+
+def _thread():
+    from pyannote_video_tpu_torch.io.video import Video
+    from pyannote_video_tpu_torch.pipeline.thread import Thread
+
+    Thread(Video(_frames()), shot=[])
+
+
+def _do_thread(tmp_path):
+    from pyannote_video_tpu_torch.cli.structure_cli import do_thread
+    from pyannote_video_tpu_torch.io.video import Video
+
+    do_thread(Video(_frames()), str(tmp_path / "missing.json"),
+              str(tmp_path / "out.json"))
+
+
+def _main_thread(tmp_path):
+    from pyannote_video_tpu_torch.cli.structure_cli import main
+
+    main(["thread", str(tmp_path / "missing.avi"),
+          str(tmp_path / "missing.json"), str(tmp_path / "out.json")])
 
 
 def _tracking_by_detection():
@@ -198,6 +224,7 @@ def _stream_extract():
 
 
 @pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main",
+                                   "Thread", "do_thread", "main thread",
                                    "TrackingByDetection", "FaceTracking",
                                    "face_cli.track", "face_cli.main",
                                    "LandmarkPredictor", "FaceEmbedder",
@@ -211,6 +238,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
     call = {"Shot": _shot, "FaceDetector": _detector,
             "do_shot": lambda: _do_shot(tmp_path),
             "main": lambda: _main(tmp_path),
+            "Thread": _thread, "do_thread": lambda: _do_thread(tmp_path),
+            "main thread": lambda: _main_thread(tmp_path),
             "TrackingByDetection": _tracking_by_detection,
             "FaceTracking": _face_tracking,
             "face_cli.track": lambda: _face_track(tmp_path),
@@ -326,3 +355,109 @@ def test_streaming_loops_read_the_device_once_per_batch(name, reads):
     assert code.count(".cpu(") == reads, name
     assert not [call for call in (".item(", "bool(", "float(t", "torch.tensor(")
                 if call in code]
+
+
+def _structure_bodies():
+    from pyannote_video_tpu_torch.ops import flow, orb
+
+    return {
+        "orb.detect_and_describe": orb.detect_and_describe,
+        "orb.hamming_2nn": orb.hamming_2nn,
+        "orb.batched_ratio_matches": orb.batched_ratio_matches,
+        "flow.poly_expansion": flow.poly_expansion,
+        "flow._flow_level": flow._flow_level,
+        "flow.farneback_flow": flow.farneback_flow,
+        "flow.warped_residual": flow.warped_residual,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "orb.detect_and_describe", "orb.hamming_2nn", "orb.batched_ratio_matches",
+    "flow.poly_expansion", "flow._flow_level", "flow.farneback_flow",
+    "flow.warped_residual"])
+def test_structure_bodies_never_wait_for_the_device(name):
+    """ORB over a feature batch, a 64-pair Hamming product and the flow of a
+    shot chunk are enqueued whole; the reads are in ``Thread`` (once per
+    feature batch and per 64 pairs) and in ``Shot``."""
+    source = inspect.getsource(_structure_bodies()[name])
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"{name} calls {found}"
+
+
+def test_thread_reads_the_device_once_per_batch():
+    from pyannote_video_tpu_torch.pipeline.thread import Thread
+
+    for name in ("_compute_features", "_pair_counts"):
+        source = inspect.getsource(getattr(Thread, name))
+        code = "\n".join(line.split("#")[0] for line in source.splitlines())
+        assert code.count(".cpu(") == 1, name
+        assert not [call for call in (".item(", "bool(", ".numpy(")
+                    if call in code], name
+
+
+# host modules copied from the JAX package: (port module, JAX module)
+HOST_COPIES = [
+    ("core/assignment.py", "core/assignment.py"),
+    ("core/graph.py", "core/graph.py"),
+    ("core/segment.py", "core/segment.py"),
+    ("utils/metrics.py", "utils/metrics.py"),
+]
+
+
+def _without_docstring(path: Path) -> str:
+    tree = ast.parse(path.read_text(), str(path))
+    if tree.body and isinstance(tree.body[0], ast.Expr) and isinstance(
+            getattr(tree.body[0], "value", None), ast.Constant):
+        tree.body = tree.body[1:]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("port,jax", HOST_COPIES, ids=[p for p, _ in HOST_COPIES])
+def test_host_copies_hold_the_same_code(port, jax):
+    assert _without_docstring(ROOT / "pyannote_video_tpu_torch" / port) == (
+        _without_docstring(ROOT / "pyannote_video_tpu" / jax))
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 9, 12])
+def test_assignment_copy_matches_jax(n):
+    from pyannote_video_tpu.core import assignment as jassignment
+    from pyannote_video_tpu_torch.core import associate_by_overlap, hungarian
+
+    rng = np.random.default_rng(n)
+    cost = rng.uniform(0, 1, (n, n))
+    cost[rng.uniform(size=(n, n)) < 0.3] = 0.0
+    assert hungarian(cost) == jassignment.hungarian(cost)
+    rows, cols = max(n - 1, 0), n
+    assert (associate_by_overlap(cost, rows, cols)
+            == jassignment.associate_by_overlap(cost, rows, cols))
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_metrics_copy_matches_jax(seed):
+    from pyannote_video_tpu.utils import metrics as jmetrics
+    from pyannote_video_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(seed)
+    truth = sorted(rng.uniform(0, 60, 8).tolist())
+    pred = sorted((np.asarray(truth[:6]) + rng.normal(0, 0.05, 6)).tolist()
+                  + rng.uniform(0, 60, 2).tolist())
+    assert metrics.boundary_f1(pred, truth, 0.1) == jmetrics.boundary_f1(pred, truth, 0.1)
+
+    def boxes(k):
+        xy = rng.uniform(0, 100, (k, 2))
+        return [tuple(map(float, (x, y, x + 30, y + 40))) for x, y in xy]
+
+    gt = {t: boxes(2) for t in range(6)}
+    found = {t: [(l + 3, u - 2, r + 3, b - 2) for l, u, r, b in gt[t][:1]]
+             + boxes(1) for t in range(1, 6)}
+    found[6] = boxes(1)
+    assert metrics.track_frame_f1(found, gt) == jmetrics.track_frame_f1(found, gt)
+    a, b = gt[0][0], found[1][0]
+    assert metrics.iou_xyxy(a, b) == jmetrics.iou_xyxy(a, b)
+    assignment = {i: int(rng.integers(4)) for i in range(12)}
+    identity = {i: int(rng.integers(3)) for i in range(12)}
+    assert (metrics.cluster_purity(assignment, identity)
+            == jmetrics.cluster_purity(assignment, identity))
+    assert (metrics.pairwise_prf(assignment, identity)
+            == jmetrics.pairwise_prf(assignment, identity))

@@ -136,14 +136,6 @@ class TestShot:
         for expected, got in zip(episode.cuts, found):
             assert abs(expected - got) <= 1.5 / episode.fps
 
-    def test_farneback_not_ported(self, episode):
-        from pyannote_video_tpu_torch.io.video import Video
-        from pyannote_video_tpu_torch.pipeline.shot import Shot
-
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Shot(Video(episode.frames, fps=episode.fps), method="farneback",
-                 device="cpu")
-
 
 class TestStructureCLI:
     def test_shot_json_byte_identical(self, tmp_path):
@@ -162,13 +154,3 @@ class TestStructureCLI:
         ref = (tmp_path / "jax.json").read_bytes()
         assert (tmp_path / "torch.json").read_bytes() == ref
         assert ref.startswith(b'{"pyannote": "Timeline"')
-
-    @pytest.mark.parametrize("argv", [["thread", "v.avi", "s.json", "o.json"],
-                                      ["scene", "v.avi", "t.json", "o.json"]])
-    def test_unported_commands_exit_nonzero(self, argv):
-        from pyannote_video_tpu_torch.cli.structure_cli import main
-
-        with pytest.raises(SystemExit) as exc:
-            main(argv, device="cpu")
-        assert exc.value.code not in (0, None)
-        assert "not ported" in str(exc.value.code)
