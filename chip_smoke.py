@@ -117,7 +117,27 @@ printing one JSON line:
    CPU (flows within FLOW_TOL px on >= FLOW_SHARE of the pixels, the
    residuals within rtol FLOW_DFD_RTOL); launches, device ms and wall ms of
    the chunk;
-17. kernels: per kernel its launches on the main path (both shot runs,
+17. fused (beside the main path, after the kernel counts were read): the
+   fused detect -> align -> embed program (``models/fused.py``) and its
+   detect-only half on 64 frames of the 10-shot episode, bf16, 8 face slots
+   per frame, with the packaged detector and refiner, the 15-stage cascade
+   and ResNet-29 at width 1.0.  Detect-only equals ``FaceDetector``
+   truncated to 8 slots (same count, IoU >= 0.9) with recall >= 0.9 at IoU
+   >= 0.5, also on the 26 detection frames of a 128-frame shot; the fused
+   program's ``valid`` and boxes equal detect-only's, and on its valid
+   slots its landmarks and embeddings agree with ``predict_crops``,
+   ``extract_chips`` and the bf16 embedder on the same boxes (the rule of
+   phase 7; distance <= 0.05); in float32 on 2 frames the card equals the
+   CPU (``valid``, boxes at IoU >= 0.9, landmarks by phase 7's rule,
+   embeddings within 1e-4); ``entry()`` on the card; ``device_trace``
+   around one fused call writes a trace holding CUDA kernels; two
+   ``ShotScheduler`` workers on one card, merged, equal a plain loop of
+   per-shot detection counts; ``dfd_pairs_reference_style`` on the card
+   against its plain version (<= 1e-3).  It prints launches, device ms,
+   wall ms, frames/s, face slots/s, bytes to move, HBM ms and peak device
+   memory of one detect-only and one fused call at [64, 720, 1280, 3], and
+   launches and times of the NMS rounds alone;
+18. kernels: per kernel its launches on the main path (both shot runs,
    detect, stream_track, stream_extract, cluster and thread, the counts
    reset just before), error, times, bound, and the registers, spills and
    shared memory ptxas reports for each instance.
@@ -167,6 +187,8 @@ FARNEBACK_THRESHOLD = 5.0   # cut peaks 13.7-18.6, other frames <= 2.0
 FLOW_TOL = 1e-3             # px, Farneback flow card vs CPU
 FLOW_SHARE = 0.999          # of the pixels (textureless ones sit at the guard)
 FLOW_DFD_RTOL = 1e-4
+FUSED_FACES = 8             # face slots per frame (the JAX package's MAX_FACES)
+FUSED_FRAMES = 64           # frames per fused / detect-only call
 # the tie patterns of the association tests
 TIE_PATTERNS = [
     [[0.50, 0.45], [0.40, 0.00]], [[0.51, 0.49], [0.49, 0.51]],
@@ -1608,6 +1630,226 @@ def phase_farneback(frames, fps, cuts):
     emit(out)
 
 
+def state_bytes(*states) -> int:
+    """Bytes of every tensor in (nested) parameter states."""
+    def tensors(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                yield from tensors(v)
+        elif hasattr(node, "numel"):
+            yield node
+
+    return sum(t.numel() * t.element_size() for s in states for t in tensors(s))
+
+
+def phase_fused(tmp, frames, fps, cuts, gt):
+    """The fused detect -> align -> embed program and its detect-only half
+    on 64 frames of the episode, bf16, 8 face slots per frame, with the packaged detector,
+    refiner, 15-stage cascade and ResNet-29 at width 1.0; ``entry()``,
+    ``device_trace``, ``ShotScheduler`` and ``dfd_pairs_reference_style``
+    on the card."""
+    import json
+
+    import torch
+
+    from pyannote_video_tpu_torch.core import Segment
+    from pyannote_video_tpu_torch.entry import entry
+    from pyannote_video_tpu_torch.models import chip, embedder, landmarks
+    from pyannote_video_tpu_torch.models.detector import FaceDetector
+    from pyannote_video_tpu_torch.models.detector import (level_dims,
+                                                          pyramid_candidates)
+    from pyannote_video_tpu_torch.models.fused import (FusedFacePipeline,
+                                                       _device_nms)
+    from pyannote_video_tpu_torch.models.refiner import refine_scores
+    from pyannote_video_tpu_torch.ops.color import ingest_gray, to_gray
+    from pyannote_video_tpu_torch.ops.dfd import dfd_pairs_reference_style
+    from pyannote_video_tpu_torch.parallel.scheduler import (ShotScheduler,
+                                                             merge_results)
+    from pyannote_video_tpu_torch.utils.profiling import device_trace
+
+    M, N = FUSED_FACES, FUSED_FRAMES
+    pipe = FusedFacePipeline(device="cuda")
+    check(pipe.max_faces == M and "refiner" in pipe.detector_params,
+          "the fused pipeline serves the packaged detector and refiner, 8 slots")
+    check(pipe.landmark_params["n_stages"] == 15
+          and pipe.embedder_params["stem"]["w"].shape[0] == 32,
+          "the fused pipeline runs the 15-stage cascade and ResNet-29 at width 1.0")
+    H, W = frames.shape[1:3]
+    out = {"phase": "fused", "size": [W, H], "frames": N, "face_slots": M,
+           "compute_dtype": "bfloat16"}
+    picks = list(range(0, len(frames), len(frames) // N))[:N]
+    host = frames[picks]
+    stack = torch.from_numpy(host).cuda()
+    detect = pipe.build_detect_only(H, W)
+    fused = pipe._build(H, W)
+    args = (pipe.detector_params, pipe.embedder_params, pipe.landmark_arrays)
+
+    def slots(boxes, valid):
+        return [[tuple(b) for b, v in zip(bs.tolist(), vs.tolist()) if v]
+                for bs, vs in zip(boxes, valid)]
+
+    # detect-only against FaceDetector (same weights and dtype, host NMS),
+    # truncated to the slots, and against the truth
+    det = FaceDetector(device="cuda")
+    boxes, scores, valid = (t.cpu() for t in detect(pipe.detector_params, stack))
+    found = slots(boxes, valid)
+    ref = [d[:M] for d in det.detect_batch(host)]
+    check(boxes_agree(found, ref) and boxes_agree(ref, found),
+          "detect-only == FaceDetector truncated to 8 slots (count, IoU >= 0.9)")
+    hits = sum(any(box_iou(g, d) >= 0.5 for d in dets)
+               for boxes_gt, dets in zip([gt[i] for i in picks], found)
+               for g in boxes_gt)
+    total = sum(len(gt[i]) for i in picks)
+    check(hits / total >= 0.9, f"detect-only recall {hits / total}")
+    out["detect_only"] = {"recall_iou50": hits / total, "gt_faces": total,
+                          "detections": int(valid.sum()),
+                          "equals_face_detector": True}
+    # the detection frames of a 128-frame shot, every 5th (bench.py's batch)
+    shot = frames[0:128:5]
+    sb, _, sv = (t.cpu() for t in detect(pipe.detector_params,
+                                         torch.from_numpy(shot).cuda()))
+    check(len(shot) == 26 and boxes_agree(slots(sb, sv),
+                                          [d[:M] for d in det.detect_batch(shot)]),
+          "detect-only on the 26 detection frames of a 128-frame shot")
+    out["detect_only_shot_batch"] = {"frames": len(shot),
+                                     "detections": int(sv.sum())}
+
+    # the fused program on the same frames: detect-only's slots, and for the
+    # valid slots the port's own extract pieces on the same boxes
+    res = fused(*args, stack)
+    check(torch.equal(res.valid.cpu(), valid), "fused valid == detect-only valid")
+    check(boxes_agree(slots(res.boxes.cpu(), valid), found),
+          "fused boxes == detect-only boxes")
+    out["fused_vs_detect_only_max_box_diff_px"] = float(
+        (res.boxes.cpu() - boxes).abs()[valid].max())
+    fi, si = valid.nonzero(as_tuple=True)
+    fi_d, si_d = fi.cuda(), si.cuda()
+    with torch.no_grad():
+        lm_ref = landmarks.predict_crops(pipe.landmark_params, to_gray(stack),
+                                         fi_d, boxes[fi, si].cuda())
+        emb_ref = embedder.forward(pipe.embedder_params,
+                                   chip.extract_chips(stack, fi_d, lm_ref))
+    out["landmarks_vs_extract"] = landmark_agreement(
+        res.landmarks[fi_d, si_d].cpu().numpy(), lm_ref.cpu().numpy(),
+        "fused landmarks vs predict_crops")
+    dist = float((res.embeddings[fi_d, si_d] - emb_ref).norm(dim=1).max())
+    check(dist <= EMBED_BF16_DIST, f"fused embeddings vs extract pieces {dist}")
+    check(bool(torch.isfinite(res.embeddings).all()), "fused embeddings finite")
+    out["embeddings_vs_extract_max_dist"] = dist
+
+    # card against CPU in float32, on 2 frames
+    r32 = {}
+    for dev in ("cuda", "cpu"):
+        o = FusedFacePipeline(compute_dtype=torch.float32, device=dev)(host[:2])
+        r32[dev] = [t.cpu() for t in o]
+    (cb, _, cv, cl, ce), (pb, _, pv, pl, pe) = r32["cuda"], r32["cpu"]
+    check(torch.equal(cv, pv) and bool(pv.any()), "f32 valid: card == CPU")
+    check(boxes_agree(slots(cb, cv), slots(pb, pv)), "f32 boxes: card vs CPU")
+    emb_err = float((ce[pv] - pe[pv]).abs().max())
+    check(emb_err <= EMBED_F32_TOL, f"f32 embeddings card vs CPU {emb_err}")
+    out["card_vs_cpu_f32"] = {
+        "faces": int(pv.sum()), "box_max_diff_px": float((cb - pb).abs()[pv].max()),
+        "landmarks": landmark_agreement(cl[pv].numpy(), pl[pv].numpy(),
+                                        "f32 fused landmarks card vs CPU"),
+        "embedding_max_abs_err": emb_err}
+
+    # entry()
+    fn, eargs = entry()
+    eout = fn(*eargs)
+    torch.cuda.synchronize()
+    out["entry_shapes"] = {k: list(v.shape) for k, v in eout._asdict().items()}
+    check(out["entry_shapes"] == {"boxes": [2, 4, 4], "scores": [2, 4],
+                                  "valid": [2, 4], "landmarks": [2, 4, 68, 2],
+                                  "embeddings": [2, 4, 128]}, "entry() shapes")
+
+    # device_trace around one fused call
+    logdir = Path(tmp, "trace")
+    with device_trace(str(logdir)):
+        fused(*args, stack)
+    traces = list(logdir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, "device_trace wrote one trace")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    n_kernels = sum(e.get("cat") == "kernel" for e in events)
+    check(n_kernels > 0, "the trace holds CUDA kernels")
+    out["device_trace"] = {"events": len(events), "kernels": n_kernels,
+                           "bytes": traces[0].stat().st_size}
+
+    # ShotScheduler: two workers on one card, merged, against a plain loop
+    bounds = [0.0] + list(cuts) + [len(frames) / fps]
+    shots = [Segment(a, b) for a, b in zip(bounds[:-1], bounds[1:])]
+
+    def count(segment):
+        idx = [i for i in range(0, len(frames), 4)
+               if segment.start <= i / fps < segment.end]
+        _, _, v = detect(pipe.detector_params, torch.from_numpy(frames[idx]).cuda())
+        return int(v.sum())
+
+    results = []
+    for rank in (0, 1):
+        results += list(ShotScheduler([torch.device("cuda", 0)], rank=rank,
+                                      world=2).run(shots, count))
+    sequential = [count(s) for s in shots]
+    check(merge_results(results) == sequential,
+          f"scheduler {merge_results(results)} == loop {sequential}")
+    out["scheduler"] = {"shots": len(shots), "workers": 2,
+                        "detections_per_shot": sequential}
+
+    # dfd_pairs_reference_style: the kernel against the plain version
+    gray = ingest_gray(torch.from_numpy(frames[:65]).cuda(), 50, 89)
+    pairs = dfd_pairs_reference_style(gray[:-1], gray[1:])
+    plain = dfd_pairs_reference_style(gray[:-1].cpu(), gray[1:].cpu())
+    err = float((pairs.cpu() - plain).abs().max())
+    check(pairs.shape == (64,) and err <= DFD_TOL,
+          f"dfd_pairs_reference_style card vs plain {err}")
+    out["dfd_pairs_max_abs_err"] = err
+
+    # the NMS rounds alone, on this batch's thresholded candidates
+    frames_f = stack.float()
+    with torch.no_grad():
+        cand_scores, cand_boxes = pyramid_candidates(
+            pipe.detector_params, frames_f, level_dims(H, W))
+        cand_scores = refine_scores(pipe.detector_params["refiner"], frames_f,
+                                    cand_scores, cand_boxes)
+    cand_scores = torch.where(cand_scores > pipe.threshold, cand_scores,
+                              torch.full_like(cand_scores, float("-inf")))
+    del frames_f
+
+    def nms():
+        return _device_nms(cand_boxes, cand_scores, pipe.nms_iou, M)
+
+    check(torch.equal(nms()[2].cpu(), valid), "NMS alone == detect-only valid")
+    launches, device_ms = device_profile(nms)
+    out["nms"] = {"candidates": list(cand_scores.shape), "launches": launches,
+                  "device_ms": device_ms, "wall_ms": wall_ms(nms)}
+
+    # one detect-only and one fused call at [64, H, W, 3] uint8
+    frames_bytes = stack.numel()
+    det_params = state_bytes(pipe.detector_params)
+    costs = {
+        "detect_only": (lambda: detect(pipe.detector_params, stack),
+                        frames_bytes + det_params + N * M * (16 + 4 + 1)),
+        "fused": (lambda: fused(*args, stack),
+                  frames_bytes + state_bytes(*args)
+                  + N * M * (16 + 4 + 1 + 68 * 2 * 4 + 128 * 4)),
+    }
+    for name, (call, nbytes) in costs.items():
+        ms = wall_ms(call)
+        launches, device_ms = device_profile(call)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out.setdefault(name, {}).update(launches=launches, device_ms=device_ms, wall_ms=ms,
+                         frames_per_s=N / ms * 1e3,
+                         face_slots_per_s=N * M / ms * 1e3, bytes=nbytes,
+                         hbm_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                         peak_device_bytes=peak,
+                         peak_above_resident_bytes=peak - resident)
+    emit(out)
+
+
 def main() -> int:
     import torch
 
@@ -1647,6 +1889,8 @@ def main() -> int:
         phase_world2(tmp, frames, fps)
         phase_isolate_legs(tmp, frames, fps)
         phase_farneback(frames, fps, cuts)
+        # the fused detect -> align -> embed program, after the counts were read
+        phase_fused(tmp, frames, fps, cuts, gt)
 
     emit({"kernels": [dfd_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

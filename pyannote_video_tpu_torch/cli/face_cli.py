@@ -1,4 +1,5 @@
-"""pyannote-face CLI on PyTorch: the ``track`` and ``extract`` commands.
+"""pyannote-face CLI on PyTorch: the ``track``, ``extract`` and ``demo``
+commands.
 
 Port of ``pyannote_video_tpu/cli/face_cli.py`` with the same USAGE, flags,
 defaults and file schemas (tracking: one line per (t, track-id, normalized
@@ -12,19 +13,25 @@ per-shot tracker of ``pipeline/tracking.py`` (also taken for a custom
 ``detect_func``) and the chunked extract (64 faces per batch, RGB frames
 read by timestamp).  ``track --rank r --world W`` shards the shots over W
 workers in either engine; rank 0 merges the part files
-(``parallel/multihost.py``).  ``demo`` is not ported yet and exits with a
-message saying so.
+(``parallel/multihost.py``).  ``demo`` draws boxes, track ids, labels and
+nose lines over the video and encodes it with OpenCV: host work over
+``tracking.txt`` with no tensor, so it runs without a card.
 
 Run as ``python -m pyannote_video_tpu_torch.cli.face_cli track <video>
 <shot.json> <tracking>`` or ``... extract <video> <tracking> "" ""
 <landmarks> <embeddings>``; it runs on the CUDA device (``main(argv,
-device="cpu")`` from Python runs it on the CPU).
+device="cpu")`` from Python runs it on the CPU).  ``... demo <video>
+<tracking> <output>`` needs OpenCV, imported when it runs.
 """
 
 from __future__ import annotations
 
+import colorsys
 import os
 import sys
+from typing import Dict, List
+
+import numpy as np
 
 from ..utils.device import DeviceLike
 
@@ -108,17 +115,6 @@ Visualization options (demo):
 MIN_OVERLAP_RATIO = 0.5
 MIN_CONFIDENCE = 10.0
 MAX_GAP = 1.0
-
-_NOT_PORTED = {
-    "demo": "ROADMAP: 'Fused program and demo'",
-}
-
-
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(
-        f"pyannote-face {what}: not ported to PyTorch yet "
-        f"({_NOT_PORTED[what]}); use pyannote_video_tpu's CLI")
-
 
 def _streaming() -> bool:
     return os.environ.get("PYV_NO_STREAM") != "1"
@@ -262,7 +258,6 @@ def extract_batch(video, chunk, predictor, embedder, chip_fn,
     """
     import time
 
-    import numpy as np
     import torch
 
     device = predictor.device
@@ -314,7 +309,6 @@ def extract(video, landmark_model, embedding_model, tracking_path,
     """
     import time
 
-    import numpy as np
     import torch
 
     from ..core import formats
@@ -379,8 +373,6 @@ def _extract_chunked(video, predictor, embedder, points, landmark_output,
     ``embedder`` and ``write``."""
     import time
 
-    import numpy as np
-
     from ..core import formats
     from ..models.chip import extract_chips, extract_chips_exact
 
@@ -404,6 +396,154 @@ def _extract_chunked(video, predictor, embedder, points, landmark_output,
             flandmark.flush()
             fembedding.flush()
             lap("write", tick)
+
+
+# The reference's fixed track-color table (behavioral constant, same
+# category as its ffmpeg flags: `pyannote-face.py:320-328` — itself the
+# public Green-Armytage 26-color alphabet), so demo frames are
+# pixel-comparable with reference output.
+REFERENCE_COLORS: List[tuple] = [
+    (240, 163, 255), (0, 117, 220), (153, 63, 0), (76, 0, 92),
+    (25, 25, 25), (0, 92, 49), (43, 206, 72), (255, 204, 153),
+    (128, 128, 128), (148, 255, 181), (143, 124, 0), (157, 204, 0),
+    (194, 0, 136), (0, 51, 128), (255, 164, 5), (255, 168, 187),
+    (66, 102, 0), (255, 0, 16), (94, 241, 242), (0, 153, 143),
+    (224, 255, 102), (116, 10, 255), (153, 0, 0), (255, 255, 128),
+    (255, 255, 0), (255, 80, 5),
+]
+
+
+def _palette(n: int = 26) -> List[tuple]:
+    """Track colors: the reference's fixed 26-color table, extended with
+    golden-ratio HSV colors when more are requested."""
+    colors = list(REFERENCE_COLORS[:n])
+    for i in range(len(colors), n):
+        h = (i * 0.618033988749895) % 1.0
+        v = 0.85 if i % 2 == 0 else 0.6
+        r, g, b = colorsys.hsv_to_rgb(h, 0.85, v)
+        colors.append((int(r * 255), int(g * 255), int(b * 255)))
+    return colors
+
+
+def demo(filename, tracking_path, output, t_start=0.0, t_end=None, shift=0.0,
+         labels_path=None, landmark_path=None, height=200, ffmpeg=None):
+    """Overlay video (reference `pyannote-face.py:317-413`): colored face
+    boxes, #track-id, optional labels and nose lines, timestamp."""
+    import cv2
+
+    from ..core import formats
+    from ..io.video import Video
+
+    labels: Dict[int, str] = (
+        formats.read_labels(labels_path) if labels_path else {}
+    )
+
+    video = Video(filename, ffmpeg=ffmpeg)
+    video_width, video_height = video.size
+    ratio = height / video_height
+    width = int(ratio * video_width)
+    video.frame_size = (width, height)
+
+    points = formats.read_tracking(tracking_path)
+    by_time = list(formats.iter_tracking_by_time(points))
+    landmark_rows = (
+        formats.read_landmarks(landmark_path) if landmark_path else []
+    )
+    lm_by_time: Dict[float, List] = {}
+    for (t, identifier, pts) in landmark_rows:
+        lm_by_time.setdefault(t, []).append((identifier, pts))
+
+    colors = _palette()
+    t_end = video.duration if t_end is None else t_end
+
+    writer = cv2.VideoWriter(
+        output, cv2.VideoWriter_fourcc(*"MJPG"), video.frame_rate,
+        (width, height),
+    )
+    if not writer.isOpened():
+        raise IOError(f"could not open video writer for {output}")
+
+    face_idx = 0
+    for t in np.arange(t_start, t_end, 1.0 / video.frame_rate):
+        frame = np.ascontiguousarray(video(t))
+        t_query = t - shift
+        # reference timing semantics (`pyannote-face.py:159-172`): each
+        # frame query consumes AT MOST ONE timestamp group, and a group is
+        # drawn only on the first frame at/after its timestamp — faces are
+        # not held over later frames.  (Deviation: the reference's
+        # generator drops the final group entirely when its for-loop ends,
+        # `pyannote-face.py:174-175`; we display it.)
+        current_faces: List = []
+        if face_idx < len(by_time) and by_time[face_idx][0] <= t_query:
+            current_faces = by_time[face_idx][1]
+            face_idx += 1
+
+        cv2.putText(frame, f"{t:.3f}", (10, height - 10),
+                    cv2.FONT_HERSHEY_DUPLEX, 0.5, (255, 0, 0), 1, 8, False)
+
+        for p in current_faces:
+            color = colors[p.identifier % len(colors)]
+            pt1 = (int(p.left * width), int(p.top * height))
+            pt2 = (int(p.right * width), int(p.bottom * height))
+            cv2.rectangle(frame, pt1, pt2, color, 2)
+            cv2.putText(frame, f"#{p.identifier:d}", (pt1[0], pt2[1] + 15),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 0, 0), 1, 8,
+                        False)
+            label = labels.get(p.identifier, "")
+            cv2.putText(frame, f"{label:s}", (pt1[0], pt1[1] - 7),
+                        cv2.FONT_HERSHEY_SIMPLEX, 0.5, (255, 0, 0), 1, 8,
+                        False)
+            # nose line (landmarks 27 -> 33) when landmarks are available
+            for identifier, pts in lm_by_time.get(p.t, []):
+                if identifier != p.identifier:
+                    continue
+                # reference rounds landmark pixels (`pyannote-face.py:206`)
+                n1 = (int(round(pts[27, 0] * width)),
+                      int(round(pts[27, 1] * height)))
+                n2 = (int(round(pts[33, 0] * width)),
+                      int(round(pts[33, 1] * height)))
+                cv2.line(frame, n1, n2, color, 1)
+
+        writer.write(frame[:, :, ::-1])  # RGB -> BGR
+    writer.release()
+    _mux_audio(filename, output, t_start, t_end, ffmpeg=ffmpeg)
+
+
+def _mux_audio(source, output, t_start, t_end, ffmpeg=None):
+    """Copy the source's audio track into the rendered demo.
+
+    The reference gets audio passthrough for free from moviepy's ffmpeg
+    writer (`pyannote-face.py:408-413`); cv2.VideoWriter is video-only, so
+    when an ffmpeg binary is available the demo is re-muxed in place.
+    Without one the demo stays silent with a warning — same pixels either
+    way.
+    """
+    import shutil
+    import subprocess
+    import tempfile
+    import warnings
+
+    ffmpeg_bin = ffmpeg or shutil.which("ffmpeg")
+    if not ffmpeg_bin or not shutil.which(ffmpeg_bin):
+        warnings.warn("no ffmpeg binary found - demo has no audio track")
+        return
+    dot = output.rfind(".")
+    suffix = output[dot:] if dot > 0 else ".avi"
+    fd, tmp = tempfile.mkstemp(suffix=suffix)
+    os.close(fd)
+    cmd = [ffmpeg_bin, "-y", "-i", output, "-ss", f"{t_start:.3f}",
+           "-to", f"{t_end:.3f}", "-i", source,
+           "-map", "0:v", "-map", "1:a?", "-c:v", "copy", "-c:a", "aac",
+           "-shortest", tmp]
+    try:
+        subprocess.run(cmd, check=True, capture_output=True)
+        shutil.move(tmp, output)
+    except (subprocess.CalledProcessError, OSError) as exc:
+        warnings.warn(f"audio mux failed ({exc}); demo has no audio track")
+        try:
+            os.remove(tmp)
+        except OSError:
+            pass
 
 
 def main(argv=None, device: DeviceLike = None):
@@ -446,7 +586,17 @@ def main(argv=None, device: DeviceLike = None):
     )
 
     if arguments["demo"]:
-        raise _not_ported("demo")
+        t_end = arguments["--until"]
+        demo(arguments["<video>"], arguments["<tracking>"],
+             arguments["<output>"],
+             t_start=float(arguments["--from"]),
+             t_end=float(t_end) if t_end else None,
+             shift=float(arguments["--shift"]),
+             labels_path=arguments["--label"] or None,
+             landmark_path=arguments["--landmark"] or None,
+             height=int(arguments["--height"]),
+             ffmpeg=arguments["--ffmpeg"] or None)
+        return
 
     device = resolve_device(device)
     verbose = bool(arguments["--verbose"])

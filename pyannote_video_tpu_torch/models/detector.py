@@ -76,6 +76,16 @@ def pyramid_scales(height: int, width: int, upsample: int = 0,
     return scales
 
 
+def level_dims(height: int, width: int, upsample: int = 0):
+    """[(level_h, level_w, scale)] of the pyramid for height×width frames
+    (``int(round(...))`` is Python's banker's rounding, as in JAX)."""
+    return [
+        (max(STRIDE * 2, int(round(height * s))),
+         max(STRIDE * 2, int(round(width * s))), s)
+        for s in pyramid_scales(height, width, upsample=upsample)
+    ]
+
+
 def _decode_level(params: State, imgs: torch.Tensor, scale: float,
                   compute_dtype=torch.bfloat16):
     """FCN + device top-K decode for ONE already-resized pyramid level.
@@ -134,6 +144,24 @@ def pyramid_candidates(params: State, frames: torch.Tensor, level_dims,
     return torch.cat(ss, dim=1), torch.cat(bb, dim=1)
 
 
+def with_refiner(params: State, refiner_path: Optional[str] = None) -> State:
+    """Serving-time state with the stage-2 refine cascade attached under the
+    ``"refiner"`` key (``models/refiner.py``).
+
+    A run-time key: the stage-1 and refiner weight files stay separate.
+    ``PYV_NO_REFINE=1`` serves the plain single-stage pyramid (A/B kill
+    switch), and so does a state that has no packaged refiner to take.
+    """
+    if os.environ.get("PYV_NO_REFINE") == "1" or "refiner" in params:
+        return params
+    if refiner_path is not None:
+        return {**params, "refiner": load_params(refiner_path)}
+    from .weights import default_refiner_params
+
+    ref = default_refiner_params()
+    return {**params, "refiner": ref} if ref is not None else params
+
+
 class FaceDetector:
     """Multi-scale CNN face detector.
 
@@ -170,16 +198,7 @@ class FaceDetector:
                 from .weights import default_detector_params
 
                 params = default_detector_params()
-        if os.environ.get("PYV_NO_REFINE") != "1" and "refiner" not in params:
-            if refiner_path is not None:
-                params = {**params, "refiner": load_params(refiner_path)}
-            else:
-                from .weights import default_refiner_params
-
-                ref = default_refiner_params()
-                if ref is not None:
-                    params = {**params, "refiner": ref}
-        self.params = state_to(params, self.device)
+        self.params = state_to(with_refiner(params, refiner_path), self.device)
         if threshold is None:
             threshold = (DEFAULT_THRESHOLD if "refiner" in self.params
                          else STAGE1_THRESHOLD)
@@ -189,13 +208,8 @@ class FaceDetector:
         self.compute_dtype = compute_dtype
 
     def level_dims(self, H: int, W: int):
-        """[(level_h, level_w, scale)] of the pyramid for H×W frames
-        (``int(round(...))`` is Python's banker's rounding, as in JAX)."""
-        return [
-            (max(STRIDE * 2, int(round(H * s))),
-             max(STRIDE * 2, int(round(W * s))), s)
-            for s in pyramid_scales(H, W, upsample=self.upsample)
-        ]
+        """[(level_h, level_w, scale)] of the pyramid for H×W frames."""
+        return level_dims(H, W, self.upsample)
 
     @torch.no_grad()
     def candidates(self, frames: torch.Tensor):

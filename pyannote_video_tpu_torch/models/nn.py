@@ -137,8 +137,28 @@ def _to_tensors(node):
     return node
 
 
-def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
-    """Flat JAX ``.npz`` arrays → a nested state of float32 CPU tensors.
+def _flatten(params, prefix: str = "") -> Dict[str, object]:
+    """A nested JAX parameter set → flat ``"a/b/name"`` keys (a flat one
+    passes through)."""
+    flat: Dict[str, object] = {}
+    for key, value in params.items():
+        name = f"{prefix}/{key}" if prefix else key
+        if isinstance(value, dict):
+            flat.update(_flatten(value, name))
+        else:
+            flat[name] = value
+    return flat
+
+
+def params_from_jax(params: Dict[str, object]) -> State:
+    """JAX parameters → a nested state of float32 CPU tensors.
+
+    ``params`` is flat (an ``.npz`` file's ``"a/b/name"`` arrays) or nested
+    (a JAX parameter set, arrays of any array type).  A detector's serving
+    set (``FusedFacePipeline().detector_params`` of the JAX package) is
+    taken as it is: its ``c1_s2d`` stem is derived from ``c1`` and dropped
+    (this port serves the canonical stem), and its ``refiner`` is
+    converted as the top-level state it was loaded from.
 
     Keys nest at every ``/`` (``blocks/block0/conv1/w`` →
     ``state["blocks"]["block0"]["conv1"]["w"]``); a key without one is a
@@ -155,8 +175,13 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
     [in, out] and its forward computes ``pooled @ fc``.  The embedder's
     optional ``normalized_head`` scalar becomes a Python bool.
     """
+    flat = _flatten(params)
+    refiner = {k[len("refiner/"):]: v for k, v in flat.items()
+               if k.startswith("refiner/")}
     state: dict = {}
     for key, value in flat.items():
+        if key.startswith(("c1_s2d/", "refiner/")):
+            continue
         *parents, name = key.split("/")
         node = state
         for parent in parents:
@@ -165,7 +190,10 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> State:
             node[name] = bool(np.asarray(value))
         else:
             node[name] = np.asarray(value, dtype=np.float32)
-    return _to_tensors(_to_port_layout(state, top=True))
+    state = _to_tensors(_to_port_layout(state, top=True))
+    if refiner:
+        state["refiner"] = params_from_jax(refiner)
+    return state
 
 
 def load_params(path) -> State:

@@ -4,8 +4,8 @@ the device.
 Port of ``pyannote_video_tpu/ops/boxes.py``.  Boxes are ``(left, top,
 right, bottom)`` rows; areas use dlib's closed-grid convention (width =
 right - left + 1).  The numpy forms serve detection's NMS on a few dozen
-host boxes; the ``*_t`` tensor forms run inside the tracking scan, on the
-tracker state's device, in float32.
+host boxes; the ``*_t`` tensor forms run on the device in float32, inside
+the tracking scan and the fused program's NMS (``models/fused.py``).
 """
 
 from __future__ import annotations
@@ -87,11 +87,12 @@ def box_area_t(boxes: torch.Tensor) -> torch.Tensor:
 
 
 def intersection_area_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Pairwise intersection areas: a [N,4] × b [M,4] → [N, M]."""
+    """Pairwise intersection areas: a [..., N, 4] × b [..., M, 4] →
+    [..., N, M]."""
     a = a.to(torch.float32)
     b = b.to(torch.float32)
-    lt = torch.maximum(a[:, None, :2], b[None, :, :2])
-    rb = torch.minimum(a[:, None, 2:], b[None, :, 2:])
+    lt = torch.maximum(a[..., :, None, :2], b[..., None, :, :2])
+    rb = torch.minimum(a[..., :, None, 2:], b[..., None, :, 2:])
     wh = (rb - lt + 1.0).clamp_min(0.0)
     inter = wh[..., 0] * wh[..., 1]
     disjoint = (rb[..., 0] < lt[..., 0]) | (rb[..., 1] < lt[..., 1])
@@ -110,10 +111,20 @@ def gated_overlap_t(a: torch.Tensor, b: torch.Tensor,
     return torch.where(gate, inter, torch.zeros_like(inter))
 
 
-def overlap_min_ratio_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Intersection over the SMALLER box's area, on the device."""
+def iou_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pairwise IoU on the device: a [..., N, 4] × b [..., M, 4] →
+    [..., N, M]."""
     inter = intersection_area_t(a, b)
-    min_area = torch.minimum(box_area_t(a)[:, None], box_area_t(b)[None, :])
+    union = box_area_t(a)[..., :, None] + box_area_t(b)[..., None, :] - inter
+    return inter / union.clamp_min(1e-9)
+
+
+def overlap_min_ratio_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Intersection over the SMALLER box's area, on the device (batched
+    as ``iou_t``)."""
+    inter = intersection_area_t(a, b)
+    min_area = torch.minimum(box_area_t(a)[..., :, None],
+                             box_area_t(b)[..., None, :])
     return inter / min_area.clamp_min(1e-9)
 
 

@@ -28,6 +28,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.device import DeviceLike, resolve_device
+
 
 def dfd_series_plain(gray: torch.Tensor, radius: int = 3, block: int = 5,
                      subpixel: bool = True) -> torch.Tensor:
@@ -312,3 +314,22 @@ def dfd_series(gray: torch.Tensor, radius: int = 3, block: int = 5,
 
 
 dfd_series.launches = 0
+
+
+def dfd_pairs_reference_style(prev, cur, radius: int = 3, block: int = 5,
+                              device: DeviceLike = None) -> torch.Tensor:
+    """DFD for explicit (prev, cur) batches: ``[P, H, W]`` each → ``[P]``.
+
+    Tensors are used on the device they lie on; arrays are sent to
+    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  The pairs go
+    through ``dfd_series`` as one interleaved series ``prev₀, cur₀, prev₁,
+    cur₁, ...`` (one kernel launch on the card, the plain version on the
+    CPU), of which every other entry is a requested pair."""
+    if not isinstance(prev, torch.Tensor):
+        dev = resolve_device(device)
+        prev = torch.as_tensor(prev, dtype=torch.float32, device=dev)
+        cur = torch.as_tensor(cur, dtype=torch.float32, device=dev)
+    P, H, W = prev.shape
+    series = torch.stack([prev, cur], dim=1).reshape(2 * P, H, W)
+    return dfd_series(series.to(torch.float32).contiguous(), radius=radius,
+                      block=block)[0::2]

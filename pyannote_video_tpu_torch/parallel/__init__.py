@@ -1,1 +1,2 @@
-"""Multi-worker execution of the port: only ``multihost`` so far."""
+"""Multi-worker execution of the port: ``multihost`` (shot-sharded
+workers and their part files) and ``scheduler`` (shots over devices)."""

@@ -7,7 +7,9 @@ its launches is checked for every height the CLI can ask for, and a plain
 evaluation that follows the plan tile by tile (the kernel's staging, edge
 clamps and fixed-order sums) is held to the whole-frame plain version
 (atol 1e-4: the same float32 block means, summed in another order) and to
-the JAX package (atol 1e-3, as in ``tests/test_torch_shot.py``).
+the JAX package (atol 1e-3, as in ``tests/test_torch_shot.py``).  The
+pairwise form ``dfd_pairs_reference_style`` is held to JAX's (atol 1e-3)
+and to the series of each pair on its own.
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 
 import jax.numpy as jnp
 
+from pyannote_video_tpu.ops.dfd import dfd_pairs_reference_style as jax_pairs
 from pyannote_video_tpu.ops.dfd import dfd_series as jax_dfd
 from pyannote_video_tpu.utils.synthetic import synthetic_episode
 
@@ -161,3 +164,27 @@ def test_shot_height_144_matches_jax():
                                               device="cpu")]
         assert out == ref
     assert len(ref) >= 2
+
+
+@pytest.mark.parametrize("P,H,W,radius,block", [(5, 36, 64, 3, 5),
+                                                (3, 50, 89, 3, 5),
+                                                (4, 40, 60, 2, 4)])
+def test_dfd_pairs_reference_style_matches_jax(P, H, W, radius, block):
+    rng = np.random.default_rng(P * H + W)
+    prev = rng.uniform(0, 255, (P, H, W)).astype(np.float32)
+    # the second frame of each pair a shifted copy of the first, plus noise
+    cur = (np.roll(prev, (1, -2), axis=(1, 2))
+           + rng.normal(0, 4, (P, H, W))).astype(np.float32)
+    cur[-1] = rng.uniform(0, 255, (H, W))          # and one cut
+    ours = D.dfd_pairs_reference_style(torch.from_numpy(prev),
+                                       torch.from_numpy(cur), radius, block)
+    ref = np.asarray(jax_pairs(jnp.asarray(prev), jnp.asarray(cur), radius, block))
+    assert ours.shape == (P,)
+    # arrays go to the device asked for
+    assert torch.equal(D.dfd_pairs_reference_style(prev, cur, radius, block,
+                                                   device="cpu"), ours)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-3)
+    each = [float(D.dfd_series(torch.from_numpy(np.stack([a, b])), radius,
+                               block)[0]) for a, b in zip(prev, cur)]
+    np.testing.assert_allclose(ours.numpy(), each, atol=1e-4)
+    assert ours[-1] > 4 * ours[:-1].max()

@@ -4,11 +4,12 @@
   the scripts that run on the card imports ``jax`` or ``pyannote_video_tpu``.
 * Entry points called without ``device`` on a machine without CUDA raise;
   they never run on the CPU unasked.
-* The tracking scan's bodies, the extract stage's device functions and the
-  streaming path's device functions hold no call that waits for the device.
+* The tracking scan's bodies, the extract stage's device functions, the
+  streaming path's device functions and the fused programs hold no call
+  that waits for the device.
 * No module of the port imports ``cv2`` when it is imported.
 * The host modules the port copies from the JAX package stay copies: the
-  same code under their docstring, and the same answers on seeded inputs.
+  same code (docstrings aside), and the same answers on seeded inputs.
 """
 
 import ast
@@ -223,6 +224,30 @@ def _stream_extract():
     stream_extract(Video(_frames()), [], on_card, on_card)
 
 
+def _fused():
+    from pyannote_video_tpu_torch.models.fused import FusedFacePipeline
+
+    FusedFacePipeline()
+
+
+def _entry():
+    from pyannote_video_tpu_torch.entry import entry
+
+    entry()
+
+
+def _shot_scheduler():
+    from pyannote_video_tpu_torch.parallel.scheduler import ShotScheduler
+
+    ShotScheduler()
+
+
+def _dfd_pairs():
+    from pyannote_video_tpu_torch.ops.dfd import dfd_pairs_reference_style
+
+    dfd_pairs_reference_style(np.zeros((2, 10, 10)), np.zeros((2, 10, 10)))
+
+
 @pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main",
                                    "Thread", "do_thread", "main thread",
                                    "TrackingByDetection", "FaceTracking",
@@ -232,7 +257,9 @@ def _stream_extract():
                                    "FaceClustering", "Face", "run_stream",
                                    "isolate_legs", "device_batches",
                                    "prefetch_to_device", "stream_tracks",
-                                   "stream_extract"])
+                                   "stream_extract", "FusedFacePipeline",
+                                   "entry", "ShotScheduler",
+                                   "dfd_pairs_reference_style"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"Shot": _shot, "FaceDetector": _detector,
@@ -253,7 +280,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
             "device_batches": _device_batches,
             "prefetch_to_device": _prefetch_to_device,
             "stream_tracks": lambda: _stream_tracks(monkeypatch),
-            "stream_extract": _stream_extract}[entry]
+            "stream_extract": _stream_extract, "FusedFacePipeline": _fused,
+            "entry": _entry, "ShotScheduler": _shot_scheduler,
+            "dfd_pairs_reference_style": _dfd_pairs}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not (tmp_path / "out.json").exists()
@@ -396,20 +425,51 @@ def test_thread_reads_the_device_once_per_batch():
                     if call in code], name
 
 
+def _fused_bodies():
+    from pyannote_video_tpu_torch.models import fused
+
+    return {
+        "fused._device_nms": fused._device_nms,
+        "FusedFacePipeline._candidates": fused.FusedFacePipeline._candidates,
+        "FusedFacePipeline._build": fused.FusedFacePipeline._build,
+        "FusedFacePipeline.build_detect_only":
+            fused.FusedFacePipeline.build_detect_only,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "fused._device_nms", "FusedFacePipeline._candidates",
+    "FusedFacePipeline._build", "FusedFacePipeline.build_detect_only"])
+def test_fused_bodies_never_wait_for_the_device(name):
+    """The fused and detect-only programs (and the NMS rounds in them) are
+    enqueued whole; the caller reads their output once."""
+    source = inspect.getsource(_fused_bodies()[name])
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"{name} calls {found}"
+
+
 # host modules copied from the JAX package: (port module, JAX module)
 HOST_COPIES = [
     ("core/assignment.py", "core/assignment.py"),
     ("core/graph.py", "core/graph.py"),
     ("core/segment.py", "core/segment.py"),
     ("utils/metrics.py", "utils/metrics.py"),
+    ("utils/synthetic_shift.py", "utils/synthetic_shift.py"),
+    ("models/dlib_convert.py", "models/dlib_convert.py"),
 ]
 
 
 def _without_docstring(path: Path) -> str:
+    """The module's code: its AST with every docstring taken out (the
+    module's, and those of its classes and functions, which a copy may word
+    for its own package)."""
     tree = ast.parse(path.read_text(), str(path))
-    if tree.body and isinstance(tree.body[0], ast.Expr) and isinstance(
-            getattr(tree.body[0], "value", None), ast.Constant):
-        tree.body = tree.body[1:]
+    for node in [tree] + [n for n in ast.walk(tree) if isinstance(
+            n, (ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))]:
+        if node.body and isinstance(node.body[0], ast.Expr) and isinstance(
+                getattr(node.body[0], "value", None), ast.Constant):
+            node.body = node.body[1:]
     return ast.dump(tree)
 
 

@@ -605,6 +605,12 @@ def test_extract_takes_its_engine_from_the_environment(
 @pytest.mark.parametrize("argv", [
     ["demo", "clip.avi", "tracking.txt", "out.avi"],
     ["demo", "--world=2", "--height=200", "clip.avi", "tracking.txt", "out.avi"]])
-def test_only_demo_still_exits_nonzero(argv):
-    with pytest.raises(SystemExit, match="ROADMAP: 'Fused program and demo'"):
-        face_cli.main(argv, device="cpu")
+def test_only_demo_still_exits_nonzero(argv, monkeypatch):
+    """``demo`` is ported: no command exits non-zero for being unported,
+    and ``demo`` takes its own flags (``--world`` belongs to ``track``)."""
+    calls = {}
+    monkeypatch.setattr(face_cli, "demo",
+                        lambda *a, **k: calls.update(args=a, kwargs=k))
+    face_cli.main(argv, device="cpu")
+    assert calls["args"] == ("clip.avi", "tracking.txt", "out.avi")
+    assert calls["kwargs"]["height"] == (200 if "--height=200" in argv else 400)

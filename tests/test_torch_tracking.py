@@ -385,14 +385,19 @@ class TestUnported:
         (["demo", "--height=200", "--from=1", "v.avi", "t.txt", "o.avi"],
          "demo"),
     ])
-    def test_unported_commands_exit_nonzero(self, argv, item):
-        from pyannote_video_tpu_torch.cli.face_cli import main
+    def test_unported_commands_exit_nonzero(self, argv, item, monkeypatch):
+        """Every command is ported now: ``demo`` dispatches to its function
+        with the JAX CLI's flags and returns (exit status 0)."""
+        from pyannote_video_tpu_torch.cli import face_cli
 
-        with pytest.raises(SystemExit) as exc:
-            main(argv, device="cpu")
-        assert exc.value.code not in (0, None)
-        assert "not ported" in str(exc.value.code)
-        assert "ROADMAP" in str(exc.value.code) and item in str(exc.value.code)
+        calls = []
+        monkeypatch.setattr(face_cli, item,
+                            lambda *a, **k: calls.append((a, k)))
+        assert face_cli.main(argv, device="cpu") is None
+        (args, kwargs), = calls
+        assert args == ("v.avi", "t.txt", "o.avi")
+        assert kwargs["t_start"] == (1.0 if "--from=1" in argv else 0.0)
+        assert kwargs["t_end"] is None and kwargs["shift"] == 0.0
 
     def test_track_function_takes_world(self, tmp_path):
         """``world`` > 1 is ported: a worker writes its part file, and only
