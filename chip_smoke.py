@@ -137,7 +137,30 @@ printing one JSON line:
    wall ms, frames/s, face slots/s, bytes to move, HBM ms and peak device
    memory of one detect-only and one fused call at [64, 720, 1280, 3], and
    launches and times of the NMS rounds alone;
-18. kernels: per kernel its launches on the main path (both shot runs,
+18. train (beside the main path, after fused): the trainers on the card at
+   their own defaults, float32, TF32 off.  The embedder (ResNet-29 at width
+   1.0 from the packaged file, 16 identities x 3 = 48 chips of 150²,
+   clip(5) -> Adam(1e-3)), the detector (``deep_width`` 96 from a seeded
+   init, 16 crops of 128², Adam on the cosine schedule) and the refiner
+   (widths 32-128 from a seeded init, the 64² crops of one padded batch
+   cut from a ``ServeMiner`` refresh on the packaged stage 1): one step on
+   the card against the same step on the CPU, same params and batch (loss
+   within TRAIN_LOSS_RTOL, every gradient within TRAIN_GRAD_TOL of
+   max(its largest, 1% of the model's), the moved statistics within
+   TRAIN_STAT_RTOL, the parameters after Adam within TRAIN_PARAM_TOL where
+   |g| > 1e-3 of the model's and within two rates elsewhere); 5 timed
+   steps (wall ms each, finite losses, peak device memory, samples/s),
+   5 profiled ones (launches, device ms of each) and one whose convolution and
+   matrix operations torch counts (their least time at the float32 peak,
+   F32_OPS_PER_S); ``save_params`` then
+   ``load_params`` gives a state whose forward equals the saved one's;
+   each trainer's ``main`` for 2 steps; the detector's mining refresh (8
+   negative + 8 positive frames of 360x480 through the bf16 pyramid: wall
+   and host render seconds) and its pyramid card against CPU on 2 frames
+   (logits within 5% of their span, >= 80% of the top cells shared); the
+   ``ServeMiner`` refresh's wall; ``PYV_NO_REFINE`` left as it was; the
+   landmark trainer's data and one tree, without OpenCV;
+19. kernels: per kernel its launches on the main path (both shot runs,
    detect, stream_track, stream_extract, cluster and thread, the counts
    reset just before), error, times, bound, and the registers, spills and
    shared memory ptxas reports for each instance.
@@ -189,6 +212,11 @@ FLOW_SHARE = 0.999          # of the pixels (textureless ones sit at the guard)
 FLOW_DFD_RTOL = 1e-4
 FUSED_FACES = 8             # face slots per frame (the JAX package's MAX_FACES)
 FUSED_FRAMES = 64           # frames per fused / detect-only call
+TRAIN_STEPS = 5             # timed steps per gradient trainer
+TRAIN_LOSS_RTOL = 1e-4      # one step, card vs CPU, float32: the loss
+TRAIN_GRAD_TOL = 1e-3       # ... each gradient, of max(its largest, 1% of the model's)
+TRAIN_STAT_RTOL = 1e-4      # ... the moved batch-norm statistics
+TRAIN_PARAM_TOL = 1e-6      # ... the parameters after the step, where |g| > 1e-3 of the model's
 # the tie patterns of the association tests
 TIE_PATTERNS = [
     [[0.50, 0.45], [0.40, 0.00]], [[0.51, 0.49], [0.49, 0.51]],
@@ -519,8 +547,10 @@ def device_profile(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # a ``record_function`` range (``torch.optim`` wraps each step in one)
+    # shows as a device row spanning its kernels' queue: not a launch
     rows = [evt for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA]
+            if evt.device_type == DeviceType.CUDA and not evt.is_user_annotation]
     n = sum(evt.count for evt in rows)
     check(n > 0, "the profiler saw the device")
     return n, sum(float(evt.self_device_time_total) for evt in rows) * 1e-3
@@ -1850,6 +1880,320 @@ def phase_fused(tmp, frames, fps, cuts, gt):
     emit(out)
 
 
+def loss_and_grads(loss_fn, params, batch):
+    """(loss, gradients by flat key, moved batch-norm statistics), on the
+    host, of ``loss_fn`` on ``params`` and ``batch`` where they live."""
+    import torch
+
+    from pyannote_video_tpu_torch.models import nn
+
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in nn.trainable_leaves(params).items()}
+    loss, moved = loss_fn(nn.with_leaves(params, leaves), *batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    stats = {k: v.detach().cpu() for k, v in nn.flatten_params(moved).items()
+             if k.endswith(("mean", "var"))}
+    return float(loss.detach()), {k: g.cpu() for k, g in zip(leaves, grads)}, stats
+
+
+def step_agreement(loss_fn, params, batch, make_opt) -> dict:
+    """One step of a trainer on the card against the same step
+    through the plain CPU path, same params and batch, float32 with TF32
+    off: loss, every gradient, the moved statistics and the parameters
+    after Adam."""
+    import torch
+
+    from pyannote_video_tpu_torch.models import nn
+    from pyannote_video_tpu_torch.train.optim import train_step
+
+    on = {dev: (nn.state_to(params, torch.device(dev)),
+                [b.to(dev) for b in batch]) for dev in ("cuda", "cpu")}
+    card, cpu = (loss_and_grads(loss_fn, *on[dev]) for dev in ("cuda", "cpu"))
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    check(np.isfinite(card[0]) and loss_rel <= TRAIN_LOSS_RTOL,
+          f"loss card {card[0]} vs CPU {cpu[0]}")
+    scale = max(float(g.abs().max()) for g in cpu[1].values())
+    grad_rel = 0.0
+    for key, g in cpu[1].items():
+        err = float((card[1][key] - g).abs().max())
+        rel = err / max(float(g.abs().max()), 1e-2 * scale)
+        grad_rel = max(grad_rel, rel)
+        check(rel <= TRAIN_GRAD_TOL, f"gradient {key}: card vs CPU {rel}")
+    stat_rel = max(float(((card[2][k] - v).abs() / v.abs().clamp_min(1e-3)).max())
+                   for k, v in cpu[2].items())
+    check(stat_rel <= TRAIN_STAT_RTOL, f"statistics card vs CPU {stat_rel}")
+    after = []
+    for p, b in (on["cuda"], on["cpu"]):
+        state, opt = make_opt(p)
+        new, _ = train_step(loss_fn, state, opt, *b)
+        after.append(nn.flatten_params(nn.state_to(new, torch.device("cpu"))))
+    rate = opt.rate(0)
+    param_err = noise_err = 0.0
+    for key, g in cpu[1].items():
+        diff = (after[0][key] - after[1][key]).abs()
+        clear = g.abs() > 1e-3 * scale
+        if clear.any():
+            param_err = max(param_err, float(diff[clear].max()))
+        if (~clear).any():
+            noise_err = max(noise_err, float(diff[~clear].max()))
+    check(param_err <= TRAIN_PARAM_TOL, f"parameters after the step {param_err}")
+    check(noise_err <= 2 * rate + TRAIN_PARAM_TOL,
+          f"parameters of noise-level gradients moved {noise_err}")
+    return {"loss_card": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "stat_rel": stat_rel,
+            "param_err": param_err, "noise_param_err": noise_err}
+
+
+def timed_steps(loss_fn, params, opt, batch, n: int = TRAIN_STEPS) -> tuple:
+    """``n`` steps on the card: wall ms of each (ending in a synchronise),
+    its loss, peak device memory; then ``n`` more, each under
+    torch.profiler alone, for its launches and device ms; then one whose
+    operations torch counts."""
+    import torch
+
+    from pyannote_video_tpu_torch.train.optim import train_step
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        params, loss = train_step(loss_fn, params, opt, *batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    check(bool(np.isfinite(losses).all()), f"finite losses {losses}")
+    holder = [params]
+
+    def one():
+        holder[0], _ = train_step(loss_fn, holder[0], opt, *batch)
+
+    profiled = [device_profile(one) for _ in range(n)]
+    # the step's convolution and matrix operations (forward and backward),
+    # counted by torch; their least time at the float32 peak
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        holder[0], _ = train_step(loss_fn, holder[0], opt, *batch)
+    flops = counter.get_total_flops()
+    samples = len(batch[0])
+    return holder[0], {
+        "steps": n, "wall_ms": walls, "losses": losses,
+        "launches": [p[0] for p in profiled],
+        "device_ms": [p[1] for p in profiled],
+        "operations_per_step": flops,
+        "bound_ms": flops / F32_OPS_PER_S * 1e3, "bound_by": "operations",
+        "samples_per_s": samples / float(np.median(walls)) * 1e3,
+        "peak_device_bytes": peak, "peak_above_resident_bytes": peak - resident}
+
+
+def saved_and_read_back(tmp, name, params, forward, x) -> float:
+    """``save_params`` to ``tmp``, ``load_params`` back: the forward on the
+    read-back state against the forward on the state saved."""
+    import torch
+
+    from pyannote_video_tpu_torch.models import nn
+
+    path = Path(tmp, f"{name}.npz")
+    nn.save_params(path, params)
+    back = nn.state_to(nn.load_params(path), x.device)
+    with torch.no_grad():
+        a = forward(params, x, compute_dtype=torch.float32)
+        b = forward(back, x, compute_dtype=torch.float32)
+    err = float((a - b).abs().max())
+    check(err <= 1e-6, f"{name}: forward on the read-back state differs by {err}")
+    return err
+
+
+def run_main(module, argv) -> dict:
+    """A trainer's ``main`` on the card, its step lines captured: wall
+    seconds and the logged losses (finite)."""
+    import importlib
+    import io
+
+    main_fn = importlib.import_module(
+        f"pyannote_video_tpu_torch.train.{module}").main
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        check(main_fn(argv) == 0, f"{module}.main {argv}")
+    seconds = time.perf_counter() - t0
+    losses = [float(line.split()[3]) for line in out.getvalue().splitlines()
+              if line.startswith("step")]
+    check(len(losses) >= 1 and bool(np.isfinite(losses).all()),
+          f"{module}.main losses {losses}")
+    check(Path(argv[1]).exists(), f"{module}.main wrote {argv[1]}")
+    return {"argv": argv[:1] + argv[2:], "seconds": seconds, "losses": losses}
+
+
+def phase_train(tmp):
+    """The trainers on the card at their own defaults (full width), each
+    step held against the plain CPU path; the miners' refreshes; the
+    landmark trainer's data without OpenCV."""
+    import torch
+
+    from pyannote_video_tpu_torch.models import detector, embedder, nn, refiner
+    from pyannote_video_tpu_torch.models.weights import default_embedder_params
+    from pyannote_video_tpu_torch.train import (data, mine, optim,
+                                                train_detector,
+                                                train_embedder,
+                                                train_landmarks,
+                                                train_refiner)
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    out = {"phase": "train", "dtype": "float32"}
+
+    # embedder: ResNet-29 at width 1.0 from the packaged file (--resume),
+    # 16 identities x 3 = 48 chips of 150², clip(5) -> adam(1e-3)
+    params = default_embedder_params()
+    check(params["stem"]["w"].shape[0] == 32, "ResNet-29 at width 1.0")
+    bank = data.identity_bank(512, seed=1)
+    t0 = time.perf_counter()
+    chips, labels = data.embedding_batch(rng, bank, n_ident=16, per_ident=3)
+    render_s = time.perf_counter() - t0
+    batch = train_embedder.batch_tensors(chips, labels, "cpu")
+    check(tuple(batch[0].shape) == (48, 150, 150, 3), "48 chips of 150²")
+
+    def embedder_opt(p):
+        return optim.adam(p, 1e-3, max_norm=5.0)
+
+    row = {"batch": 48, "width": 1.0, "render_s": render_s,
+           "card_vs_cpu": step_agreement(train_embedder.loss_fn, params, batch,
+                                         embedder_opt)}
+    state = nn.state_to(params, cuda)
+    state, row["run"] = timed_steps(train_embedder.loss_fn, *embedder_opt(state),
+                                    [b.to(cuda) for b in batch])
+    row["save_read_back_err"] = saved_and_read_back(
+        tmp, "embedder", state, embedder.forward, batch[0][:4].to(cuda))
+    row["main"] = run_main("train_embedder",
+                           ["2", str(Path(tmp, "embedder_main.npz")), "--resume"])
+    out["embedder"] = row
+
+    # detector: deep_width 96 from a seeded init, batch 16 of 128², cosine
+    # adam(3e-4); the mining refresh at step 0 (8 + 8 frames of 360x480
+    # through the bf16 pyramid)
+    params = detector.init_params(torch.Generator().manual_seed(0), deep_width=96)
+    t0 = time.perf_counter()
+    frames, boxes, hard = data.detection_batch(rng, batch=16, height=128,
+                                               width=128, return_hard=True)
+    render_s = time.perf_counter() - t0
+    batch = train_detector.batch_tensors(
+        frames, *data.detection_targets(boxes, 128, 128), hard, "cpu")
+
+    def detector_opt(p):
+        return optim.adam(p, optim.cosine_decay_schedule(3e-4, 600, alpha=0.1))
+
+    row = {"batch": 16, "size": 128, "deep_width": 96, "render_s": render_s,
+           "card_vs_cpu": step_agreement(train_detector.loss_fn, params, batch,
+                                         detector_opt)}
+    state = nn.state_to(params, cuda)
+    miner = mine.HardNegativeMiner(crop=128, seed=77, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = miner.refresh(state)
+    found_pos = miner.refresh_positives(state)
+    refresh_s = time.perf_counter() - t0
+    check(miner.frames_per_refresh == 8 and len(miner) == found,
+          "the refresh ran 8 frames and stored what it found")
+    row["mining_refresh"] = {
+        "frames": 2 * miner.frames_per_refresh, "size": [mine.MINE_W, mine.MINE_H],
+        "wall_s": refresh_s, "render_s": miner.render_seconds,
+        "negatives": found, "positives": found_pos,
+        "max_logit": miner.last_max_logit}
+    # the miner's bf16 pyramid, card vs CPU, on 2 of its frames
+    two = np.stack([mine.negative_frame(np.random.default_rng(s)) for s in (1, 2)])
+    dims = miner._dims
+    levels = {dev: mine._read_levels(mine._pyramid_maps(
+        nn.state_to(params, torch.device(dev)),
+        torch.from_numpy(two).to(dev, torch.float32), dims))
+        for dev in ("cuda", "cpu")}
+    agree = total = 0
+    logit_rel = 0.0
+    for (cl, _), (pl, _) in zip(levels["cuda"], levels["cpu"]):
+        logit_rel = max(logit_rel, float(np.abs(cl - pl).max())
+                        / max(float(pl.max() - pl.min()), 1e-6))
+        for b in range(len(two)):
+            top_c = set(np.argsort(cl[b].ravel())[::-1][:mine.MINE_PER_FRAME])
+            top_p = set(np.argsort(pl[b].ravel())[::-1][:mine.MINE_PER_FRAME])
+            agree, total = agree + len(top_c & top_p), total + len(top_p)
+    check(logit_rel <= 0.05, f"miner logits card vs CPU {logit_rel} of the span")
+    check(agree >= 0.8 * total, f"miner top cells card vs CPU {agree}/{total}")
+    row["mining_card_vs_cpu"] = {"logit_rel_span": logit_rel,
+                                 "top_cells_shared": agree / total}
+    state, row["run"] = timed_steps(train_detector.loss_fn, *detector_opt(state),
+                                    [b.to(cuda) for b in batch])
+    row["save_read_back_err"] = saved_and_read_back(
+        tmp, "detector", state, detector.forward_maps, batch[0][:4].to(cuda))
+    row["main"] = run_main("train_detector",
+                           ["2", str(Path(tmp, "detector_main.npz"))])
+    out["detector"] = row
+
+    # refiner: widths (32, 64, 96, 128) from a seeded init, 64² crops from
+    # a ServeMiner refresh on the packaged stage 1
+    no_refine = os.environ.get("PYV_NO_REFINE")
+    serve = train_refiner.ServeMiner(seed=7, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve.refresh()
+    refresh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    crops, labels, hard = train_refiner.pad_to_bucket(
+        *train_refiner.crop_batch(rng, serve))
+    render_s = time.perf_counter() - t0
+    batch = train_refiner.batch_tensors(crops, labels, hard, "cpu")
+    params = refiner.init_params(torch.Generator().manual_seed(0))
+    check(params["c4"]["w"].shape[0] == 128, "refiner widths (32, 64, 96, 128)")
+
+    def refiner_opt(p):
+        return optim.adam(p, optim.cosine_decay_schedule(3e-4, 3000, alpha=0.1))
+
+    row = {"batch": len(crops), "crop": refiner.CROP,
+           "serve_refresh": {"frames": train_refiner.MINE_FRAMES,
+                             "wall_s": refresh_s,
+                             "render_s": serve.render_seconds,
+                             "negatives": len(serve.neg),
+                             "positives": len(serve.pos)},
+           "batch_render_and_crop_s": render_s,
+           "card_vs_cpu": step_agreement(train_refiner.loss_fn, params, batch,
+                                         refiner_opt)}
+    state = nn.state_to(params, cuda)
+    state, row["run"] = timed_steps(train_refiner.loss_fn, *refiner_opt(state),
+                                    [b.to(cuda) for b in batch])
+    row["save_read_back_err"] = saved_and_read_back(
+        tmp, "refiner", state, refiner.forward, batch[0][:8].to(cuda))
+    row["main"] = run_main("train_refiner",
+                           ["2", str(Path(tmp, "refiner_main.npz"))])
+    check(os.environ.get("PYV_NO_REFINE") == no_refine,
+          "the refiner's miner and trainer leave PYV_NO_REFINE as it was")
+    out["refiner"] = row
+
+    # landmarks: the ERT trainer's data and one tree, host only, no OpenCV
+    t0 = time.perf_counter()
+    grays, boxes, gts = train_landmarks.make_dataset(n_images=8, size=96)
+    mean_shape = np.asarray(train_landmarks.CANONICAL_LANDMARKS, np.float32)
+    shapes = np.broadcast_to(mean_shape.reshape(1, -1), gts.shape).copy()
+    lrng = np.random.default_rng(0)
+    anchor = lrng.integers(0, train_landmarks.N_POINTS, 80).astype(np.int32)
+    offset = lrng.uniform(-0.25, 0.25, (80, 2)).astype(np.float32)
+    feats = train_landmarks.extract_features(grays, boxes, shapes, mean_shape,
+                                             anchor, offset)
+    pts = mean_shape[anchor] + offset
+    cdf = train_landmarks._pair_cdf(np.sqrt(((pts[:, None] - pts[None]) ** 2).sum(-1)))
+    tree = train_landmarks.fit_tree(feats, gts - shapes, lrng, cdf)
+    check(grays.shape == (16, 96, 96) and np.isfinite(tree[3]).all(),
+          "landmark data and one tree")
+    check("cv2" not in sys.modules, "the trainers ran without OpenCV")
+    out["landmarks"] = {"images": 8, "samples": len(grays),
+                        "host_s": time.perf_counter() - t0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+
+
 def main() -> int:
     import torch
 
@@ -1891,6 +2235,8 @@ def main() -> int:
         phase_farneback(frames, fps, cuts)
         # the fused detect -> align -> embed program, after the counts were read
         phase_fused(tmp, frames, fps, cuts, gt)
+        # the trainers
+        phase_train(tmp)
 
     emit({"kernels": [dfd_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,12 +1,14 @@
 """CNN face detector: multi-scale FCN over an image pyramid, batched.
 
-Port of ``pyannote_video_tpu/models/detector.py`` (inference).  dlib's MMOD
+Port of ``pyannote_video_tpu/models/detector.py``.  dlib's MMOD
 face-net channel plan (16/32/32/45, a stride-8 downsampler of 3× conv5×5/2,
 3× conv5×5/1 and a 9×9 head of 1 score + 4 box deltas) slid over a chained
 3/4-ratio image pyramid; per level a device top-K picks candidate cells and
 decodes boxes in original-image coordinates, so only ``[B, K, 4]``
 candidates reach the host, where threshold and NMS run.  The stage-2
 refiner (``models/refiner.py``) re-scores the top candidates when loaded.
+``init_params`` and ``forward_maps(train=True)`` are the trainer's
+(``train/train_detector.py``).
 
 Public functions keep the JAX package's NHWC layout at their edges
 (images ``[B, H, W, 3]``, maps ``[B, h/8, w/8, 5]``) and run NCHW inside.
@@ -26,7 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .nn import State, batch_norm, conv, load_params, state_to, top_k
+from .nn import (State, batch_norm, bn_init, conv, conv_init, load_params,
+                 state_to, top_k)
 from ..ops.boxes import nms
 from ..ops.color import resize_bilinear
 from ..utils.device import DeviceLike, resolve_device
@@ -45,18 +48,40 @@ DEFAULT_THRESHOLD = 4.0
 STAGE1_THRESHOLD = 4.5
 
 
+def init_params(generator: torch.Generator, deep_width: int = 45) -> State:
+    """A fresh detector (`detector.py:65`): dlib's MMOD channel plan
+    (16/32/32/45) with the stride-8 tail c4-c6 and the head at
+    ``deep_width`` channels (the trainer's default is 96); He-normal
+    filters drawn from ``generator``, zero biases, identity batch norms."""
+    dw = deep_width
+    plan = [(3, 16), (16, 32), (32, 32), (32, dw), (dw, dw), (dw, dw)]
+    params: State = {}
+    for i, (c_in, c_out) in enumerate(plan, start=1):
+        params[f"c{i}"] = conv_init(generator, 5, 5, c_in, c_out)
+        params[f"bn{i}"] = bn_init(c_out)
+    # head: 1 score + 4 box deltas (dx, dy, log dw, log dh)
+    params["head"] = conv_init(generator, 9, 9, dw, 5)
+    return params
+
+
 def forward_maps(params: State, images: torch.Tensor,
-                 compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """FCN forward: images [B, h, w, 3] float → maps [B, h/8, w/8, 5] float32."""
+                 compute_dtype=torch.bfloat16, train: bool = False):
+    """FCN forward: images [B, h, w, 3] float → maps [B, h/8, w/8, 5] float32.
+
+    ``train=True`` (`detector.py:178-211`) normalises with batch
+    statistics and returns ``(maps, params with the statistics moved)``.
+    """
     # normalize in the compute dtype, as the JAX package does
     x = (images.to(compute_dtype) / 256.0 - 0.5).permute(0, 3, 1, 2)
+    new: State = {}
     for i, stride in zip(range(1, 7), (2, 2, 2, 1, 1, 1)):
         x = conv(params[f"c{i}"], x, stride=stride, dlib_padding=False,
                  compute_dtype=compute_dtype)
-        x = F.relu(batch_norm(params[f"bn{i}"], x))
+        x, new[f"bn{i}"] = batch_norm(params[f"bn{i}"], x, train=train)
+        x = F.relu(x)
     maps = conv(params["head"], x, stride=1, dlib_padding=False,
-                compute_dtype=compute_dtype)
-    return maps.permute(0, 2, 3, 1)
+                compute_dtype=compute_dtype).permute(0, 2, 3, 1)
+    return (maps, {**params, **new}) if train else maps
 
 
 def pyramid_scales(height: int, width: int, upsample: int = 0,

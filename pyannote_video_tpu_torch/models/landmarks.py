@@ -300,3 +300,20 @@ def cascade_from_jax(flat: Dict[str, np.ndarray],
 def _load(path, device: DeviceLike = "cpu") -> Dict:
     with np.load(path) as data:
         return cascade_from_jax({k: data[k] for k in data.files}, device)
+
+
+def save(path, params: Dict) -> None:
+    """Write a cascade as the JAX package's ``.npz`` (`landmarks.py:350`):
+    flat ``"s{k}/name"`` keys, which both packages' ``LandmarkPredictor``
+    read.  Takes the trainer's numpy arrays (``train/train_landmarks.py``)
+    or a port cascade (``cascade_from_jax``'s tensors and ints); index
+    arrays are written as int32, everything else in its own dtype (the
+    trainer's leaves are float16)."""
+    flat = {}
+    for key, value in params.items():
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value)
+        flat[key] = value.astype(np.int32) if key.endswith(
+            ("anchor", "i1", "i2")) else value
+    np.savez_compressed(path, **flat)

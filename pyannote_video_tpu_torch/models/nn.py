@@ -1,15 +1,23 @@
-"""Inference building blocks for the port's conv nets, and the weight loader.
+"""Building blocks of the port's conv nets, their initialisers, and the
+weight reader and writer.
 
-Port of the inference half of ``pyannote_video_tpu/models/nn.py``.  The JAX
-package keeps NHWC activations and HWIO filters; here activations are NCHW
-and filters OIHW, PyTorch's own layout, and ``params_from_jax`` converts the
-packaged ``.npz`` files (flat ``"a/b/name"`` keys) once at load time.
+Port of ``pyannote_video_tpu/models/nn.py``.  The JAX package keeps NHWC
+activations and HWIO filters; here activations are NCHW and filters OIHW,
+PyTorch's own layout.  ``params_from_jax`` converts the packaged ``.npz``
+files (flat ``"a/b/name"`` keys) once at load time and ``params_to_jax``
+converts back, so a file the port saves is one the JAX package reads.
 
 A state is a nested dict of tensors: ``{"c1": {"w", "b"}, "bn1": {"scale",
 "bias", "mean", "var"}, "d1": {"w", "b"}, ...}`` for the detector and the
 refiner, ``{"stem": {...}, "stem_bn": {...}, "blocks": {"block0": {"conv1":
-{...}, "bn1": {...}, ...}}, "fc": tensor}`` for the embedder.  Training
-(``train=True``, the ``*_init`` functions) is not ported.
+{...}, "bn1": {...}, ...}}, "fc": tensor}`` for the embedder.
+
+Training (``train=True``): batch norm normalises with the batch's own mean
+and biased variance, gradients flow through both, and the recorded
+statistics move as ``0.99·old + 0.01·batch``, as in the JAX package.  The
+recorded ``mean`` and ``var`` are buffers, not trained leaves
+(``trainable_leaves``); the ``*_init`` functions draw from an explicit
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,6 +30,26 @@ import torch
 import torch.nn.functional as F
 
 State = Dict[str, object]
+
+
+def conv_init(generator: torch.Generator, k_h: int, k_w: int, c_in: int,
+              c_out: int) -> Dict[str, torch.Tensor]:
+    """He-normal conv filter (OIHW) + zero bias (`nn.py:29`)."""
+    w = torch.randn((c_out, c_in, k_h, k_w), generator=generator)
+    return {"w": w * float(np.sqrt(2.0 / (k_h * k_w * c_in))),
+            "b": torch.zeros(c_out)}
+
+
+def dense_init(generator: torch.Generator, c_in: int, c_out: int) -> torch.Tensor:
+    """He-normal ``[out, in]`` weights (``F.linear``'s layout)."""
+    w = torch.randn((c_out, c_in), generator=generator)
+    return w * float(np.sqrt(2.0 / c_in))
+
+
+def bn_init(c: int) -> Dict[str, torch.Tensor]:
+    """Identity batch norm (`nn.py:57`)."""
+    return {"scale": torch.ones(c), "bias": torch.zeros(c),
+            "mean": torch.zeros(c), "var": torch.ones(c)}
 
 
 def conv(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
@@ -45,12 +73,31 @@ def conv(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
 
 
 def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
-               eps: float = 1e-5) -> torch.Tensor:
-    """Inference batch norm over NCHW channels (`nn.py:66-86`): dlib's
-    ``affine`` layer, a frozen scale+shift from the recorded statistics."""
-    inv = torch.rsqrt(params["var"] + eps) * params["scale"]
-    return ((x - params["mean"][:, None, None]) * inv[:, None, None]
-            + params["bias"][:, None, None])
+               train: bool = False, eps: float = 1e-5):
+    """Batch norm over NCHW channels (`nn.py:66-86`); returns ``(output,
+    params)``, as the JAX function does.
+
+    Inference is dlib's ``affine`` layer, a frozen scale+shift from the
+    recorded statistics, and returns ``params`` as they are.
+    ``train=True`` normalises with the batch's mean and biased variance and
+    returns the params with the statistics moved; the moved statistics
+    carry no gradient.
+    """
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = ((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        momentum = 0.99
+        new_params = {
+            **params,
+            "mean": (momentum * params["mean"] + (1 - momentum) * mean).detach(),
+            "var": (momentum * params["var"] + (1 - momentum) * var).detach(),
+        }
+    else:
+        mean, var = params["mean"], params["var"]
+        new_params = params
+    inv = torch.rsqrt(var + eps) * params["scale"]
+    y = (x - mean[:, None, None]) * inv[:, None, None] + params["bias"][:, None, None]
+    return y, new_params
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -68,21 +115,32 @@ def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 
 
+def resblock_init(generator: torch.Generator, c_in: int, c_out: int):
+    """Two 3×3 convs and their batch norms (`nn.py:117`)."""
+    return {"conv1": conv_init(generator, 3, 3, c_in, c_out),
+            "bn1": bn_init(c_out),
+            "conv2": conv_init(generator, 3, 3, c_out, c_out),
+            "bn2": bn_init(c_out)}
+
+
 def resblock(params, x: torch.Tensor, down: bool = False,
-             compute_dtype=torch.float32) -> torch.Tensor:
-    """dlib-style residual block, inference only (`nn.py:127-156`).
+             compute_dtype=torch.float32, train: bool = False):
+    """dlib-style residual block (`nn.py:127-156`).
 
     down=False: y = relu(x + bn2(conv2(relu(bn1(conv1(x))))))
     down=True : VALID stride-2 conv1; skip = 2×2 stride-2 average pool of
                 x, cropped to the conv output's height and width (the
                 VALID conv can be one pixel smaller than the pooled skip)
                 and zero-padded on channels (dlib ``residual_down``).
+
+    Returns ``(output, params)``, with both batch norms' statistics moved
+    when ``train=True`` and unchanged otherwise.
     """
     h = conv(params["conv1"], x, stride=2 if down else 1,
              compute_dtype=compute_dtype)
-    h = F.relu(batch_norm(params["bn1"], h))
-    h = conv(params["conv2"], h, stride=1, compute_dtype=compute_dtype)
-    h = batch_norm(params["bn2"], h)
+    h, bn1 = batch_norm(params["bn1"], h, train=train)
+    h = conv(params["conv2"], F.relu(h), stride=1, compute_dtype=compute_dtype)
+    h, bn2 = batch_norm(params["bn2"], h, train=train)
     if down:
         skip = avg_pool(x, 2, 2)[:, :, : h.shape[2], : h.shape[3]]
         c_extra = h.shape[1] - skip.shape[1]
@@ -90,7 +148,23 @@ def resblock(params, x: torch.Tensor, down: bool = False,
             skip = F.pad(skip, (0, 0, 0, 0, 0, c_extra))
     else:
         skip = x
-    return F.relu(h + skip)
+    out = F.relu(h + skip)
+    return out, {**params, "bn1": bn1, "bn2": bn2}
+
+
+def hinge(x: torch.Tensor) -> torch.Tensor:
+    """``max(x, 0)`` with the JAX package's gradient at a tie
+    (``jnp.maximum(x, 0.0)`` gives half to each side at ``x == 0``;
+    ``relu`` and ``clamp`` give 0 or 1)."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor,
+                                 labels: torch.Tensor) -> torch.Tensor:
+    """Element-wise BCE on logits, optax's formula:
+    ``−labels·log σ(x) − (1 − labels)·log σ(−x)``."""
+    labels = labels.to(logits.dtype)
+    return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -137,17 +211,30 @@ def _to_tensors(node):
     return node
 
 
-def _flatten(params, prefix: str = "") -> Dict[str, object]:
-    """A nested JAX parameter set → flat ``"a/b/name"`` keys (a flat one
-    passes through)."""
+def flatten_params(params, prefix: str = "") -> Dict[str, object]:
+    """A nested parameter set → flat ``"a/b/name"`` keys (`nn.py:162`; a
+    flat one passes through)."""
     flat: Dict[str, object] = {}
     for key, value in params.items():
         name = f"{prefix}/{key}" if prefix else key
         if isinstance(value, dict):
-            flat.update(_flatten(value, name))
+            flat.update(flatten_params(value, name))
         else:
             flat[name] = value
     return flat
+
+
+def unflatten_params(flat: Dict[str, object]) -> dict:
+    """Flat ``"a/b/name"`` keys → a nested dict of the same values
+    (`nn.py:173`)."""
+    nested: dict = {}
+    for key, value in flat.items():
+        *parents, name = key.split("/")
+        node = nested
+        for parent in parents:
+            node = node.setdefault(parent, {})
+        node[name] = value
+    return nested
 
 
 def params_from_jax(params: Dict[str, object]) -> State:
@@ -174,26 +261,99 @@ def params_from_jax(params: Dict[str, object]) -> State:
     Top-level arrays keep their layout: the embedder's ``fc`` stays
     [in, out] and its forward computes ``pooled @ fc``.  The embedder's
     optional ``normalized_head`` scalar becomes a Python bool.
+    ``params_to_jax`` inverts this.
     """
-    flat = _flatten(params)
+    flat = flatten_params(params)
     refiner = {k[len("refiner/"):]: v for k, v in flat.items()
                if k.startswith("refiner/")}
-    state: dict = {}
-    for key, value in flat.items():
-        if key.startswith(("c1_s2d/", "refiner/")):
-            continue
-        *parents, name = key.split("/")
-        node = state
-        for parent in parents:
-            node = node.setdefault(parent, {})
-        if not parents and name == "normalized_head":
-            node[name] = bool(np.asarray(value))
-        else:
-            node[name] = np.asarray(value, dtype=np.float32)
+    state = unflatten_params({
+        key: (bool(np.asarray(value)) if key == "normalized_head"
+              else np.asarray(value, dtype=np.float32))
+        for key, value in flat.items()
+        if not key.startswith(("c1_s2d/", "refiner/"))})
     state = _to_tensors(_to_port_layout(state, top=True))
     if refiner:
         state["refiner"] = params_from_jax(refiner)
     return state
+
+
+def _to_jax_layout(node: dict, top: bool) -> dict:
+    """One level of a nested numpy state in the port's layout, converted in
+    place to the JAX package's (the inverse of ``_to_port_layout``)."""
+    convs = sorted((k for k, v in node.items() if re.fullmatch(r"c\d+", k)
+                    and isinstance(v, dict) and v["w"].ndim == 4),
+                   key=lambda k: int(k[1:])) if top else []
+    # channels of the last conv's output (OIHW)
+    c = node[convs[-1]]["w"].shape[0] if convs else 0
+    for layer, arrays in node.items():
+        if not isinstance(arrays, dict):
+            continue
+        w = arrays.get("w")
+        if isinstance(w, dict) or w is None:
+            _to_jax_layout(arrays, top=False)
+            continue
+        if w.ndim == 4:
+            arrays["w"] = w.transpose(2, 3, 1, 0)
+        elif w.ndim == 2:
+            w = w.T
+            if layer == "d1" and convs:
+                side = int(round(np.sqrt(w.shape[0] // c)))
+                w = (w.reshape(c, side, side, -1).transpose(1, 2, 0, 3)
+                     .reshape(w.shape[0], -1))
+            arrays["w"] = np.ascontiguousarray(w)
+    return node
+
+
+def params_to_jax(state: State) -> dict:
+    """A port state → the nested numpy parameter set of the JAX package,
+    in its layout (HWIO filters, [in, out] dense weights, ``d1``'s rows in
+    (h, w, c) order), the inverse of ``params_from_jax``.
+
+    The arrays are float32 copies on the host; ``normalized_head`` becomes
+    the float32 scalar the JAX files hold.  A nested ``refiner`` is a state
+    of its own and is refused here: it is saved to its own file
+    (``save_params``).
+    """
+    if "refiner" in state:
+        raise ValueError("the refiner is a state of its own: convert "
+                         "state['refiner'] apart from the stage-1 state")
+    flat = {key: (np.asarray(1.0 if value else 0.0, np.float32)
+                  if key == "normalized_head"
+                  else value.detach().to("cpu", torch.float32).numpy().copy())
+            for key, value in flatten_params(state).items()}
+    return _to_jax_layout(unflatten_params(flat), top=True)
+
+
+def save_params(path, state: State, refiner_path=None) -> None:
+    """Write a port state as a JAX-package ``.npz`` file (`nn.py:184`):
+    flat ``"a/b/name"`` keys in the JAX layout, which
+    ``pyannote_video_tpu.models.nn.load_params`` reads back.
+
+    A serving state's nested ``refiner`` is written to ``refiner_path``,
+    its own file, never into the stage-1 file; a state that holds one
+    without a ``refiner_path`` raises.
+    """
+    if "refiner" in state:
+        if refiner_path is None:
+            raise ValueError("this state holds a refiner: give refiner_path "
+                             "for its own file")
+        save_params(refiner_path, state["refiner"])
+        state = {k: v for k, v in state.items() if k != "refiner"}
+    np.savez_compressed(path, **flatten_params(params_to_jax(state)))
+
+
+def trainable_leaves(state: State) -> Dict[str, torch.Tensor]:
+    """The leaves a trainer updates, by flat key in sorted order: every
+    tensor but the batch norms' recorded ``mean`` and ``var`` (buffers that
+    training moves by their own rule) and flags."""
+    return {key: value for key, value in sorted(flatten_params(state).items())
+            if isinstance(value, torch.Tensor)
+            and key.rsplit("/", 1)[-1] not in ("mean", "var")}
+
+
+def with_leaves(state: State, leaves: Dict[str, torch.Tensor]) -> State:
+    """``state`` with the leaves named by flat key replaced."""
+    return unflatten_params({**flatten_params(state), **leaves})
 
 
 def load_params(path) -> State:

@@ -1,6 +1,6 @@
 """Candidate-refining CNN — stage 2 of the face-detection cascade.
 
-Port of ``pyannote_video_tpu/models/refiner.py`` (inference).  The pyramid
+Port of ``pyannote_video_tpu/models/refiner.py``.  The pyramid
 FCN (``models/detector.py``) proposes; this small classifier re-scores each
 frame's top proposals on a 64² crop centred on the candidate with some
 context around it.  The final score of a refined candidate is the refiner
@@ -10,10 +10,12 @@ logit; candidates below stage-1's top-K, or under ``PROPOSAL_GATE``, get
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
-from .nn import State, batch_norm, conv, top_k
+from .nn import State, batch_norm, bn_init, conv, conv_init, dense_init, top_k
 from ..ops.crop import crop_resize
 
 # square crop window at CONTEXT × the candidate's larger side
@@ -27,24 +29,48 @@ UNREFINED = -12.0
 PROPOSAL_GATE = 0.5
 
 
+def init_params(generator: torch.Generator,
+                widths: Tuple[int, ...] = (32, 64, 96, 128),
+                hidden: int = 128) -> State:
+    """A fresh refiner (`refiner.py:57`): 4× stride-2 3×3 conv stack
+    (64² → 4²) and a 2-layer dense head, He-normal from ``generator``."""
+    params: State = {}
+    c_in = 3
+    for i, c_out in enumerate(widths, start=1):
+        params[f"c{i}"] = conv_init(generator, 3, 3, c_in, c_out)
+        params[f"bn{i}"] = bn_init(c_out)
+        c_in = c_out
+    feat = (CROP // (2 ** len(widths))) ** 2 * c_in
+    params["d1"] = {"w": dense_init(generator, feat, hidden),
+                    "b": torch.zeros(hidden)}
+    params["d2"] = {"w": dense_init(generator, hidden, 1),
+                    "b": torch.zeros(1)}
+    return params
+
+
 def forward(params: State, crops: torch.Tensor,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, train: bool = False):
     """crops [N, CROP, CROP, 3] float (0-255, NHWC) → logits [N] float32.
 
     4× stride-2 3×3 conv+BN+ReLU (64² → 4²), then two dense layers.  The
     flattened map is NCHW; ``params_from_jax`` permuted ``d1``'s rows to
     match, so the logits equal the JAX package's NHWC flatten.
+    ``train=True`` (`refiner.py:79-101`) normalises with batch statistics
+    and returns ``(logits, params with the statistics moved)``.
     """
     x = (crops.to(compute_dtype) / 256.0 - 0.5).permute(0, 3, 1, 2)
+    new: State = {}
     i = 1
     while f"c{i}" in params:
         x = conv(params[f"c{i}"], x, stride=2, dlib_padding=False,
                  compute_dtype=compute_dtype)
-        x = F.relu(batch_norm(params[f"bn{i}"], x))
+        x, new[f"bn{i}"] = batch_norm(params[f"bn{i}"], x, train=train)
+        x = F.relu(x)
         i += 1
     x = x.reshape(x.shape[0], -1)
     h = F.relu(F.linear(x, params["d1"]["w"], params["d1"]["b"]))
-    return F.linear(h, params["d2"]["w"], params["d2"]["b"])[:, 0]
+    logits = F.linear(h, params["d2"]["w"], params["d2"]["b"])[:, 0]
+    return (logits, {**params, **new}) if train else logits
 
 
 def crop_boxes(boxes: torch.Tensor, context: float = CONTEXT) -> torch.Tensor:

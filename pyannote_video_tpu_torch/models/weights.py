@@ -24,6 +24,17 @@ LANDMARKS_FILE = WEIGHTS_DIR / "landmarks_synthetic.npz"
 EMBEDDER_WIDTH = 1.0
 
 
+def checked_output(path) -> Path:
+    """A trainer's output path, refused when it lies inside the JAX package
+    (whose packaged files are the reference and are never rewritten)."""
+    out = Path(path).resolve()
+    if out.is_relative_to(WEIGHTS_DIR.parent.parent):
+        raise ValueError(f"{path}: the trainers never write into the JAX "
+                         "package; give an output path outside it")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    return out
+
+
 def default_detector_params() -> State:
     """The packaged stage-1 pyramid detector (raises if it is missing)."""
     if not DETECTOR_FILE.exists():
@@ -43,8 +54,8 @@ def default_refiner_params() -> Optional[State]:
 
 
 def default_embedder_params() -> State:
-    """The packaged ResNet-29 embedder (raises if it is missing: random
-    weights belong to training, which is not ported)."""
+    """The packaged ResNet-29 embedder (raises if it is missing: a fresh
+    model is asked for by width, ``FaceEmbedder(width=...)``)."""
     if not EMBEDDER_FILE.exists():
         raise FileNotFoundError(f"no packaged embedder weights at {EMBEDDER_FILE}")
     return load_params(EMBEDDER_FILE)

@@ -35,7 +35,9 @@ def pairwise_sqdist(x: torch.Tensor, y: Optional[torch.Tensor] = None) -> torch.
         xy = torch.matmul(x, y.T)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    out = (x2 + y2 - 2.0 * xy).clamp_min(0.0)
+    # max(·, 0) with jnp.maximum's gradient at a tie, for the trainer
+    out = x2 + y2 - 2.0 * xy
+    out = torch.maximum(out, out.new_zeros(()))
     if symmetric:
         # self-distances are exactly zero; the product's different reduction
         # order would otherwise leave O(eps·‖x‖²) noise on the diagonal

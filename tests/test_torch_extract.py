@@ -127,8 +127,18 @@ class TestParams:
             landmarks.LandmarkPredictor(device="cpu")
 
     def test_other_width_without_params_waits_for_training(self):
-        with pytest.raises(NotImplementedError, match="Training"):
-            embedder.FaceEmbedder(width=0.5, device="cpu")
+        """Another width asks for a fresh model, as the JAX class does: the
+        shapes of that width, drawn from a generator seeded 0 (so twice the
+        same model), and embeddings of the right shape."""
+        a = embedder.FaceEmbedder(width=0.5, device="cpu")
+        b = embedder.FaceEmbedder(width=0.5, device="cpu")
+        assert a.params["stem"]["w"].shape == (16, 3, 7, 7)
+        assert a.params["fc"].shape == (128, 128)
+        assert a.params["blocks"]["block12"]["conv2"]["w"].shape == (128, 128, 3, 3)
+        for key, value in nn.flatten_params(a.params).items():
+            assert torch.equal(value, nn.flatten_params(b.params)[key]), key
+        emb = a(np.zeros((2, 150, 150, 3), np.uint8))
+        assert emb.shape == (2, 128) and np.isfinite(emb).all()
 
 
 # -- ops/warp.py --------------------------------------------------------------
@@ -430,7 +440,7 @@ class TestBlocks:
         ref, _ = jnn.resblock(p, jnp.asarray(x), down=down)
         state = nn.params_from_jax(
             {k: np.asarray(v) for k, v in jnn.flatten_params(p).items()})
-        out = nn.resblock(state, _nchw(x), down=down)
+        out, _ = nn.resblock(state, _nchw(x), down=down)
         assert _nhwc(out).shape == np.asarray(ref).shape
         if down:
             assert out.shape[2] == (size - 3) // 2 + 1

@@ -7,7 +7,12 @@
 * The tracking scan's bodies, the extract stage's device functions, the
   streaming path's device functions and the fused programs hold no call
   that waits for the device.
-* No module of the port imports ``cv2`` when it is imported.
+* No module of the port imports ``cv2`` when it is imported, and the
+  trainers (``train/``) never import it: their data runs without OpenCV.
+* The trainers' step functions hold no call that waits for the device; a
+  mining refresh reads the device once (twice for the refiner's miner:
+  candidates, then crops); no trainer's ``main`` writes into the JAX
+  package.
 * The host modules the port copies from the JAX package stay copies: the
   same code (docstrings aside), and the same answers on seeded inputs.
 """
@@ -242,6 +247,49 @@ def _shot_scheduler():
     ShotScheduler()
 
 
+def _train_detector():
+    from pyannote_video_tpu_torch.train.train_detector import train
+
+    train(steps=1, mine=False)
+
+
+def _train_embedder():
+    from pyannote_video_tpu_torch.train.train_embedder import train
+
+    train(steps=1, width=0.125)
+
+
+def _train_refiner():
+    from pyannote_video_tpu_torch.train.train_refiner import train
+
+    train(steps=1)
+
+
+def _hard_negative_miner():
+    from pyannote_video_tpu_torch.train.mine import HardNegativeMiner
+
+    HardNegativeMiner()
+
+
+def _serve_miner():
+    from pyannote_video_tpu_torch.train.train_refiner import ServeMiner
+
+    ServeMiner()
+
+
+def _train_main(module, tmp_path):
+    import importlib
+
+    importlib.import_module(f"pyannote_video_tpu_torch.train.{module}").main(
+        ["1", str(tmp_path / "out.json")])
+
+
+def _fresh_embedder():
+    from pyannote_video_tpu_torch.models.embedder import FaceEmbedder
+
+    FaceEmbedder(width=0.5)
+
+
 def _dfd_pairs():
     from pyannote_video_tpu_torch.ops.dfd import dfd_pairs_reference_style
 
@@ -259,7 +307,13 @@ def _dfd_pairs():
                                    "prefetch_to_device", "stream_tracks",
                                    "stream_extract", "FusedFacePipeline",
                                    "entry", "ShotScheduler",
-                                   "dfd_pairs_reference_style"])
+                                   "dfd_pairs_reference_style",
+                                   "train_detector.train",
+                                   "train_embedder.train",
+                                   "train_refiner.train", "HardNegativeMiner",
+                                   "ServeMiner", "train_detector.main",
+                                   "train_embedder.main", "train_refiner.main",
+                                   "FaceEmbedder(width=0.5)"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"Shot": _shot, "FaceDetector": _detector,
@@ -282,7 +336,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
             "stream_tracks": lambda: _stream_tracks(monkeypatch),
             "stream_extract": _stream_extract, "FusedFacePipeline": _fused,
             "entry": _entry, "ShotScheduler": _shot_scheduler,
-            "dfd_pairs_reference_style": _dfd_pairs}[entry]
+            "dfd_pairs_reference_style": _dfd_pairs,
+            "train_detector.train": _train_detector,
+            "train_embedder.train": _train_embedder,
+            "train_refiner.train": _train_refiner,
+            "HardNegativeMiner": _hard_negative_miner,
+            "ServeMiner": _serve_miner,
+            "train_detector.main": lambda: _train_main("train_detector", tmp_path),
+            "train_embedder.main": lambda: _train_main("train_embedder", tmp_path),
+            "train_refiner.main": lambda: _train_main("train_refiner", tmp_path),
+            "FaceEmbedder(width=0.5)": _fresh_embedder}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
     assert not (tmp_path / "out.json").exists()
@@ -447,6 +510,120 @@ def test_fused_bodies_never_wait_for_the_device(name):
     code = "\n".join(line.split("#")[0] for line in source.splitlines())
     found = [call for call in SYNCING_CALLS if call in code]
     assert not found, f"{name} calls {found}"
+
+
+TRAIN_FILES = sorted((ROOT / "pyannote_video_tpu_torch" / "train").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", TRAIN_FILES, ids=lambda p: p.name)
+def test_trainers_never_import_cv2(path):
+    """Not at module level and not inside a function: the machine with the
+    card has no OpenCV."""
+    bad = [m for m in _imported(path) if (m or "").split(".")[0] == "cv2"]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_training_data_runs_without_cv2():
+    """Every generator of the trainers, in a process where ``import cv2``
+    fails: nothing they reach at any depth needs OpenCV."""
+    import subprocess
+    import sys
+
+    code = """
+import sys
+sys.modules["cv2"] = None
+import numpy as np
+from pyannote_video_tpu_torch.train import data, mine, train_landmarks, train_refiner
+rng = np.random.default_rng(0)
+data.detection_batch(rng, batch=2)
+data.embedding_batch(rng, data.identity_bank(4), n_ident=2, per_ident=1)
+mine.negative_frame(rng, 120, 160)
+mine.positive_frame(rng, 120, 160)
+train_refiner.scene(rng)
+train_landmarks.make_dataset(n_images=2)
+"""
+    done = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert done.returncode == 0, done.stderr[-2000:]
+
+
+def _train_bodies():
+    from pyannote_video_tpu_torch.models import detector, embedder, nn, refiner
+    from pyannote_video_tpu_torch.train import (mine, optim, train_detector,
+                                                train_embedder, train_refiner)
+
+    return {
+        "optim.train_step": optim.train_step,
+        "optim.Adam.step": optim.Adam.step,
+        "optim.clip_by_global_norm": optim.clip_by_global_norm,
+        "train_detector.loss_fn": train_detector.loss_fn,
+        "train_embedder.loss_fn": train_embedder.loss_fn,
+        "train_refiner.loss_fn": train_refiner.loss_fn,
+        "nn.batch_norm": nn.batch_norm,
+        "nn.hinge": nn.hinge,
+        "nn.sigmoid_binary_cross_entropy": nn.sigmoid_binary_cross_entropy,
+        "detector.forward_maps": detector.forward_maps,
+        "refiner.forward": refiner.forward,
+        "embedder.forward": embedder.forward,
+        "mine._pyramid_maps": mine._pyramid_maps,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "optim.train_step", "optim.Adam.step", "optim.clip_by_global_norm",
+    "train_detector.loss_fn", "train_embedder.loss_fn",
+    "train_refiner.loss_fn", "nn.batch_norm", "nn.hinge",
+    "nn.sigmoid_binary_cross_entropy", "detector.forward_maps",
+    "refiner.forward", "embedder.forward", "mine._pyramid_maps"])
+def test_train_steps_never_wait_for_the_device(name):
+    """A training step is enqueued whole; the host reads its loss only when
+    it logs it."""
+    source = inspect.getsource(_train_bodies()[name])
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"{name} calls {found}"
+
+
+@pytest.mark.parametrize("name,reads", [("mine._read_levels", 1),
+                                        ("mine.HardNegativeMiner.refresh", 0),
+                                        ("mine.HardNegativeMiner.refresh_positives", 0),
+                                        ("train_refiner.ServeMiner.refresh", 1),
+                                        ("train_refiner._extract_grouped", 1)])
+def test_mining_reads_the_device_once_per_refresh(name, reads):
+    """``refresh`` and ``refresh_positives`` each make one ``_levels`` call,
+    whose ``_read_levels`` copies every level in one read; the refiner's
+    miner reads its candidates, then all crops in one extraction."""
+    from pyannote_video_tpu_torch.train import mine, train_refiner
+
+    obj = {"mine": mine, "train_refiner": train_refiner}
+    owner, *attrs = name.split(".")
+    fn = obj[owner]
+    for attr in attrs:
+        fn = getattr(fn, attr)
+    code = "\n".join(line.split("#")[0]
+                     for line in inspect.getsource(fn).splitlines())
+    assert code.count(".cpu(") == reads, name
+    if name.startswith("mine.HardNegativeMiner"):
+        assert code.count("self._levels(") == 1, name
+    if name == "train_refiner.ServeMiner.refresh":
+        assert code.count("_extract_grouped(") == 1, name
+    assert not [c for c in (".item(", "bool(", ".tolist(") if c in code], name
+
+
+@pytest.mark.parametrize("module", ["train_detector", "train_embedder",
+                                    "train_refiner", "train_landmarks"])
+def test_train_mains_refuse_to_write_into_the_jax_package(module, tmp_path):
+    import importlib
+
+    main = importlib.import_module(f"pyannote_video_tpu_torch.train.{module}").main
+    target = ROOT / "pyannote_video_tpu" / "models" / "weights" / "trained.npz"
+    args = [str(target)] if module == "train_landmarks" else ["1", str(target)]
+    kwargs = {} if module == "train_landmarks" else {"device": "cpu"}
+    with pytest.raises(ValueError, match="JAX package"):
+        main(args, **kwargs)
+    with pytest.raises(SystemExit):
+        main([] if module == "train_landmarks" else ["1"], **kwargs)
+    assert not target.exists()
 
 
 # host modules copied from the JAX package: (port module, JAX module)
