@@ -160,7 +160,24 @@ printing one JSON line:
    (logits within 5% of their span, >= 80% of the top cells shared); the
    ``ServeMiner`` refresh's wall; ``PYV_NO_REFINE`` left as it was; the
    landmark trainer's data and one tree, without OpenCV;
-19. kernels: per kernel its launches on the main path (both shot runs,
+19. parallel (after train): the mesh path on the one card, world 1:
+   ``make_mesh()`` is 1x1; two steps of ``make_train_step`` (width 0.25,
+   8 chips, Adam(1e-3)) equal two of ``train_step`` with the same loss
+   and Adam on the same batch, cuDNN deterministic (loss and every leaf
+   within PARALLEL_RTOL relative); ``sharded_embed_fn`` equals
+   ``embedder.forward`` (<= 1e-6); ms per step, launches and device ms,
+   sharded against unsharded; ``run_dryrun(1)`` prints its lines; then
+   ``dryrun_multichip(4, device="cpu")``, four gloo processes (dp 2 x tp 2)
+   on this machine's torch, printing the dry run's lines, timed alone;
+20. eval: ``evaluate`` at the JAX default (12 shots x 20 frames @ 640x480,
+   6 identities, seed 101) in domains A and BC, with each stage's wall;
+   domain A at 1.0 on EVAL_GATES, the rest printed; the DFD kernel's
+   launches by the eval's ``Shot`` (its count reset just before); the small
+   episode (4 shots x 10 frames @ 320x240) card against CPU (EVAL_EQUAL
+   equal, landmark error within 1e-3); ``probe("A", seeds=(101,))`` card
+   against CPU (``gt``, ``missed_at_0.5``, ``fp_n`` equal, scores within
+   PROBE_SCORE_TOL) and its margin; the wall of each of these checks;
+21. kernels: per kernel its launches on the main path (both shot runs,
    detect, stream_track, stream_extract, cluster and thread, the counts
    reset just before), error, times, bound, and the registers, spills and
    shared memory ptxas reports for each instance.
@@ -225,6 +242,17 @@ TIE_PATTERNS = [
     [[0.0, 0.0], [0.0, 0.0], [0.0, 0.0]], [[0.3]],
     [[0.4, 0.4, 0.4]], [[0.4], [0.4], [0.4]],
 ]
+PARALLEL_BATCH = 8          # chips of the world-1 sharded step, width 0.25
+PARALLEL_STEPS = 5          # timed steps each, sharded and unsharded
+PARALLEL_RTOL = 1e-6        # sharded step vs train_step: loss and every leaf
+EVAL_GATES = ("boundary_f1", "thread_f1", "scene_f1", "track_precision",
+              "cluster_purity")    # 1.0 in the JAX package's matrix, domain A
+EVAL_SMALL = dict(n_shots=4, shot_frames=10, width=320, height=240)
+EVAL_EQUAL = ("boundary_f1", "thread_f1", "scene_f1", "track_f1",
+              "track_precision", "track_recall", "cluster_purity",
+              "cluster_recall", "cluster_precision", "n_tracks", "n_clusters")
+# probe scores card vs CPU, rounded to 0.01 as the probe reports them
+PROBE_SCORE_TOL = 0.05
 # one H100 SXM (NVIDIA data sheet): HBM bytes/s and f32 non-tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
@@ -2194,6 +2222,180 @@ def phase_train(tmp):
     emit(out)
 
 
+def lines_of(fn, *args) -> list:
+    """What ``fn(*args)`` prints, line by line."""
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        fn(*args)
+    return out.getvalue().splitlines()
+
+
+def check_dryrun(lines, n: int, mesh: dict) -> None:
+    check(len(lines) == 4 and all(line.endswith(" OK") for line in lines)
+          and lines[0].startswith(f"dryrun[train]: mesh={mesh} loss=")
+          and lines[1].startswith("dryrun[fused]: ")
+          and lines[2] == "dryrun[scheduler]: 2 workers x 6 shots merged OK"
+          and lines[3].startswith(f"dryrun_multichip({n}): mesh={mesh}"),
+          f"the dry run's lines: {lines}")
+
+
+def phase_parallel():
+    """The mesh path on one card (world 1): the sharded step against
+    ``train_step`` of the same loss, the sharded forward against the
+    plain one, ``run_dryrun(1)``; then the 2 x 2 dry run as four gloo
+    processes on this machine's CPU."""
+    import torch
+    import torch.distributed as dist
+
+    from pyannote_video_tpu_torch.entry import dryrun_multichip
+    from pyannote_video_tpu_torch.models import embedder, nn
+    from pyannote_video_tpu_torch.parallel import sharding
+    from pyannote_video_tpu_torch.parallel.dryrun import run_dryrun
+    from pyannote_video_tpu_torch.parallel.mesh import make_mesh, mesh_shape
+    from pyannote_video_tpu_torch.train.optim import adam, train_step
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    mesh = make_mesh()
+    shape = mesh_shape(mesh)
+    check(shape == {"data": 1, "model": 1}, f"make_mesh() on one card: {shape}")
+    rng = np.random.default_rng(SEED)
+    params = nn.state_to(embedder.init_params(torch.Generator().manual_seed(0),
+                                              width=0.25), cuda)
+    chips = torch.from_numpy(rng.integers(0, 255, (PARALLEL_BATCH, 150, 150, 3))
+                             .astype(np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 4, (PARALLEL_BATCH,))).to(cuda)
+
+    # the same arithmetic on both sides: cuDNN's deterministic algorithms
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        s_params, s_opt = adam(sharding.shard_params_for_tp(params, mesh), 1e-3)
+        step = sharding.make_train_step(mesh, s_opt)
+        u_params, u_opt = adam(params, 1e-3)
+        s_losses, u_losses = [], []
+        for _ in range(2):
+            s_params, loss = step(s_params, chips, labels)
+            s_losses.append(float(loss))
+            u_params, loss = train_step(sharding.loss_fn, u_params, u_opt,
+                                        chips, labels)
+            u_losses.append(float(loss))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(s_losses, u_losses))
+    check(loss_rel <= PARALLEL_RTOL, f"sharded loss {s_losses} vs {u_losses}")
+    a, b = nn.flatten_params(s_params), nn.flatten_params(u_params)
+    leaf_rel, equal = 0.0, 0
+    for key, ref in b.items():
+        if not isinstance(ref, torch.Tensor):
+            continue
+        equal += bool(torch.equal(a[key], ref))
+        leaf_rel = max(leaf_rel, float((a[key] - ref).abs().max())
+                       / max(float(ref.abs().max()), 1e-30))
+    check(leaf_rel <= PARALLEL_RTOL, f"sharded leaves vs train_step: {leaf_rel}")
+    with torch.no_grad():
+        emb_err = float((sharding.sharded_embed_fn(mesh)(params, chips)
+                         - embedder.forward(params, chips)).abs().max())
+    check(emb_err <= 1e-6, f"sharded_embed_fn vs forward: {emb_err}")
+
+    # the mesh path's overhead: ms per step and launches, sharded against
+    # unsharded, in turns
+    walls = {"sharded": [], "unsharded": []}
+    for _ in range(PARALLEL_STEPS):
+        for name in walls:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "sharded":
+                s_params, _ = step(s_params, chips, labels)
+            else:
+                u_params, _ = train_step(sharding.loss_fn, u_params, u_opt,
+                                         chips, labels)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    holder = {"sharded": s_params, "unsharded": u_params}
+
+    def one(name):
+        if name == "sharded":
+            holder[name], _ = step(holder[name], chips, labels)
+        else:
+            holder[name], _ = train_step(sharding.loss_fn, holder[name], u_opt,
+                                         chips, labels)
+
+    profiled = {name: device_profile(lambda: one(name)) for name in walls}
+
+    t0 = time.perf_counter()
+    dryrun_1 = lines_of(run_dryrun, 1)
+    dryrun_1_s = time.perf_counter() - t0
+    check_dryrun(dryrun_1, 1, {"data": 1, "model": 1})
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the one-card group is gone")
+    t0 = time.perf_counter()
+    dryrun_4 = lines_of(dryrun_multichip, 4, "cpu")
+    dryrun_4_s = time.perf_counter() - t0
+    check_dryrun(dryrun_4, 4, {"data": 2, "model": 2})
+    emit({"phase": "parallel", "mesh": shape, "width": 0.25,
+          "batch": PARALLEL_BATCH,
+          "sharded_vs_train_step": {"losses": s_losses, "loss_rel": loss_rel,
+                                    "leaf_rel": leaf_rel, "equal_leaves": equal,
+                                    "leaves": sum(isinstance(v, torch.Tensor)
+                                                  for v in b.values())},
+          "embed_err": emb_err,
+          "step_wall_ms": walls,
+          "launches": {k: v[0] for k, v in profiled.items()},
+          "device_ms": {k: v[1] for k, v in profiled.items()},
+          "run_dryrun_1": {"lines": dryrun_1, "wall_s": dryrun_1_s},
+          "dryrun_multichip_4_cpu": {"lines": dryrun_4, "wall_s": dryrun_4_s},
+          "phase_s": time.perf_counter() - t_phase})
+
+
+def phase_eval():
+    """The quality harnesses on the card: the default episode in domains A
+    and BC (domain A gated on the values the JAX matrix records at 1.0),
+    the small episode and the detector probe card against CPU."""
+    from pyannote_video_tpu_torch.evals.eval_synthetic import evaluate
+    from pyannote_video_tpu_torch.evals.probe_detector import probe
+    from pyannote_video_tpu_torch.ops.dfd import dfd_series
+
+    t_phase = time.perf_counter()
+    out = {"phase": "eval"}
+    dfd_series.launches = 0
+    rows = {domain: evaluate(seed=101, domain=domain) for domain in ("A", "BC")}
+    out["dfd_launches"] = dfd_series.launches
+    check(out["dfd_launches"] > 0, "the eval's Shot launched the dfd kernel")
+    for key in EVAL_GATES:
+        check(rows["A"][key] == 1.0, f"domain A {key} {rows['A'][key]}")
+    out["default"] = rows
+
+    card = evaluate(seed=101, domain="A", **EVAL_SMALL)
+    cpu = evaluate(seed=101, domain="A", device="cpu", **EVAL_SMALL)
+    for key in EVAL_EQUAL:
+        check(card[key] == cpu[key], f"small episode {key}: card {card[key]} "
+                                     f"CPU {cpu[key]}")
+    lm = abs(card["landmark_err_interocular"] - cpu["landmark_err_interocular"])
+    check(lm <= 1e-3, f"small episode landmark error card vs CPU {lm}")
+    out["small"] = {"card": card, "cpu": cpu, "landmark_diff": lm}
+
+    walls = {}
+    t0 = time.perf_counter()
+    p_card = probe("A", seeds=(101,))
+    walls["probe_card_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_cpu = probe("A", seeds=(101,), device="cpu")
+    walls["probe_cpu_s"] = time.perf_counter() - t0
+    for key in ("gt", "missed_at_0.5", "fp_n"):
+        check(p_card[key] == p_cpu[key], f"probe {key}: card {p_card[key]} "
+                                         f"CPU {p_cpu[key]}")
+    score_diff = max(abs(p_card[k] - p_cpu[k])
+                     for k in ("real_min", "real_p5", "real_p25", "fp_max"))
+    check(score_diff <= PROBE_SCORE_TOL, f"probe scores card vs CPU {score_diff}")
+    out["probe"] = {"card": p_card, "cpu": p_cpu, "score_diff": score_diff,
+                    "margin": p_card.get("margin"), **walls}
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+
+
 def main() -> int:
     import torch
 
@@ -2237,6 +2439,9 @@ def main() -> int:
         phase_fused(tmp, frames, fps, cuts, gt)
         # the trainers
         phase_train(tmp)
+    # the mesh path, then the quality harnesses
+    phase_parallel()
+    phase_eval()
 
     emit({"kernels": [dfd_row]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

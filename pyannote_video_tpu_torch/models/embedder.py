@@ -80,11 +80,12 @@ BLOCK_PLAN = _block_plan()  # [False×3, True, F×3, True, F×2, True, F×2, Tru
 
 
 def forward(params: State, chips: torch.Tensor,
-            compute_dtype=torch.bfloat16, train: bool = False):
+            compute_dtype=torch.bfloat16, train: bool = False, psum=None):
     """Chips ``[B, 150, 150, 3]`` uint8/float (NHWC, as every chip function
     returns them) → embeddings ``[B, 128]`` float32; with ``train=True``
     (`embedder.py:99-146`) ``(embeddings, params with every batch norm's
-    statistics moved)``.
+    statistics moved)``; ``psum`` (``models/nn.py:batch_norm``) makes
+    every batch norm use the statistics of a batch split over processes.
 
     ``params["fc"]`` is [in, out] and the head is ``pooled @ fc`` in
     float32.  The embedding is L2-normalised unless the weights carry
@@ -96,13 +97,13 @@ def forward(params: State, chips: torch.Tensor,
     x = ((chips.to(torch.float32) - _INPUT_MEAN) / _INPUT_SCALE).permute(0, 3, 1, 2)
 
     h = conv(params["stem"], x, stride=2, compute_dtype=compute_dtype)
-    h, stem_bn = batch_norm(params["stem_bn"], h, train=train)
+    h, stem_bn = batch_norm(params["stem_bn"], h, train=train, psum=psum)
     h = max_pool(F.relu(h), 3, 2)
     blocks = {}
     for i, down in enumerate(BLOCK_PLAN):
         h, blocks[f"block{i}"] = resblock(params["blocks"][f"block{i}"], h,
                                           down=down, compute_dtype=compute_dtype,
-                                          train=train)
+                                          train=train, psum=psum)
 
     pooled = global_avg_pool(h)
     emb = torch.matmul(pooled.to(torch.float32), params["fc"])

@@ -73,7 +73,7 @@ def conv(params: Dict[str, torch.Tensor], x: torch.Tensor, stride: int = 1,
 
 
 def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
-               train: bool = False, eps: float = 1e-5):
+               train: bool = False, eps: float = 1e-5, psum=None):
     """Batch norm over NCHW channels (`nn.py:66-86`); returns ``(output,
     params)``, as the JAX function does.
 
@@ -82,10 +82,23 @@ def batch_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,
     ``train=True`` normalises with the batch's mean and biased variance and
     returns the params with the statistics moved; the moved statistics
     carry no gradient.
+
+    ``psum``: a differentiable sum over the processes that hold the other
+    parts of the batch (``parallel/sharding.py``), or ``None`` for a batch
+    that is all here.  With it, the mean is the summed sum over the summed
+    count and the variance the summed squared deviations over the same
+    count: the statistics of the whole batch, as XLA computes them for a
+    batch sharded over devices.
     """
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = ((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        if psum is None:
+            mean = x.mean(dim=(0, 2, 3))
+            var = ((x - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+        else:
+            count = x.new_full((1,), float(x.numel() // x.shape[1]))
+            total = psum(torch.cat([x.sum(dim=(0, 2, 3)), count]))
+            mean = total[:-1] / total[-1]
+            var = psum(((x - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / total[-1]
         momentum = 0.99
         new_params = {
             **params,
@@ -124,7 +137,7 @@ def resblock_init(generator: torch.Generator, c_in: int, c_out: int):
 
 
 def resblock(params, x: torch.Tensor, down: bool = False,
-             compute_dtype=torch.float32, train: bool = False):
+             compute_dtype=torch.float32, train: bool = False, psum=None):
     """dlib-style residual block (`nn.py:127-156`).
 
     down=False: y = relu(x + bn2(conv2(relu(bn1(conv1(x))))))
@@ -134,13 +147,14 @@ def resblock(params, x: torch.Tensor, down: bool = False,
                 and zero-padded on channels (dlib ``residual_down``).
 
     Returns ``(output, params)``, with both batch norms' statistics moved
-    when ``train=True`` and unchanged otherwise.
+    when ``train=True`` and unchanged otherwise; ``psum`` as in
+    ``batch_norm``.
     """
     h = conv(params["conv1"], x, stride=2 if down else 1,
              compute_dtype=compute_dtype)
-    h, bn1 = batch_norm(params["bn1"], h, train=train)
+    h, bn1 = batch_norm(params["bn1"], h, train=train, psum=psum)
     h = conv(params["conv2"], F.relu(h), stride=1, compute_dtype=compute_dtype)
-    h, bn2 = batch_norm(params["bn2"], h, train=train)
+    h, bn2 = batch_norm(params["bn2"], h, train=train, psum=psum)
     if down:
         skip = avg_pool(x, 2, 2)[:, :, : h.shape[2], : h.shape[3]]
         c_extra = h.shape[1] - skip.shape[1]

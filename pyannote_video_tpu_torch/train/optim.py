@@ -103,14 +103,28 @@ class Adam(torch.optim.Adam):
         self.count += 1
 
 
+def local_part(leaf: torch.Tensor) -> torch.Tensor:
+    """The tensor that holds a leaf's values on this process: a sharded
+    leaf's own slice (a ``DTensor`` of ``parallel/sharding.py``), else the
+    leaf itself.  The same object on every call, so an optimiser that
+    updates it in place updates the leaf."""
+    to_local = getattr(leaf, "to_local", None)
+    if to_local is None:
+        return leaf
+    with torch.no_grad():
+        return to_local()
+
+
 def adam(params: State, learning_rate: Union[float, Schedule],
          max_norm: float = None) -> Tuple[State, Adam]:
     """A copy of ``params`` and the ``Adam`` that trains its leaves in place
-    (the caller's ``params`` is never changed)."""
+    (the caller's ``params`` is never changed).  Of a sharded leaf the
+    optimiser holds this process's slice, and its moments are that size."""
     leaves = {k: v.detach().clone(memory_format=torch.contiguous_format)
               for k, v in trainable_leaves(params).items()}
     return (with_leaves(params, leaves),
-            Adam(leaves.values(), learning_rate, max_norm=max_norm))
+            Adam([local_part(v) for v in leaves.values()], learning_rate,
+                 max_norm=max_norm))
 
 
 def train_step(loss_fn, params: State, opt: Adam, *batch):

@@ -296,6 +296,62 @@ def _dfd_pairs():
     dfd_pairs_reference_style(np.zeros((2, 10, 10)), np.zeros((2, 10, 10)))
 
 
+def _make_mesh():
+    from pyannote_video_tpu_torch.parallel.mesh import make_mesh
+
+    make_mesh()
+
+
+def _on_card_mesh():
+    """A mesh made when there was a card, used when there is none."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(device_type="cuda")
+
+
+def _sharded_embed_fn():
+    from pyannote_video_tpu_torch.parallel.sharding import sharded_embed_fn
+
+    sharded_embed_fn(_on_card_mesh())
+
+
+def _make_train_step():
+    from pyannote_video_tpu_torch.parallel.sharding import make_train_step
+    from pyannote_video_tpu_torch.train.optim import Adam
+
+    make_train_step(_on_card_mesh(), Adam([torch.zeros(2)], 1e-3))
+
+
+def _run_dryrun():
+    from pyannote_video_tpu_torch.parallel.dryrun import run_dryrun
+
+    run_dryrun(1)
+
+
+def _launch():
+    from pyannote_video_tpu_torch.parallel.dryrun import launch
+
+    launch(1, "pyannote_video_tpu_torch.parallel.dryrun:run_dryrun", (1,))
+
+
+def _dryrun_multichip():
+    from pyannote_video_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(1)
+
+
+def _evaluate():
+    from pyannote_video_tpu_torch.evals.eval_synthetic import evaluate
+
+    evaluate(n_shots=1, shot_frames=2, width=64, height=48)
+
+
+def _probe():
+    from pyannote_video_tpu_torch.evals.probe_detector import probe
+
+    probe("A", seeds=(101,))
+
+
 @pytest.mark.parametrize("entry", ["Shot", "FaceDetector", "do_shot", "main",
                                    "Thread", "do_thread", "main thread",
                                    "TrackingByDetection", "FaceTracking",
@@ -313,7 +369,10 @@ def _dfd_pairs():
                                    "train_refiner.train", "HardNegativeMiner",
                                    "ServeMiner", "train_detector.main",
                                    "train_embedder.main", "train_refiner.main",
-                                   "FaceEmbedder(width=0.5)"])
+                                   "FaceEmbedder(width=0.5)", "make_mesh",
+                                   "sharded_embed_fn", "make_train_step",
+                                   "run_dryrun", "launch", "dryrun_multichip",
+                                   "evaluate", "probe"])
 def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"Shot": _shot, "FaceDetector": _detector,
@@ -345,9 +404,15 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(entry, monkeypatch, tmp_pat
             "train_detector.main": lambda: _train_main("train_detector", tmp_path),
             "train_embedder.main": lambda: _train_main("train_embedder", tmp_path),
             "train_refiner.main": lambda: _train_main("train_refiner", tmp_path),
-            "FaceEmbedder(width=0.5)": _fresh_embedder}[entry]
+            "FaceEmbedder(width=0.5)": _fresh_embedder,
+            "make_mesh": _make_mesh, "sharded_embed_fn": _sharded_embed_fn,
+            "make_train_step": _make_train_step, "run_dryrun": _run_dryrun,
+            "launch": _launch,
+            "dryrun_multichip": _dryrun_multichip, "evaluate": _evaluate,
+            "probe": _probe}[entry]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call()
+    assert not torch.distributed.is_initialized()
     assert not (tmp_path / "out.json").exists()
     assert not (tmp_path / "out2.json").exists()
 
@@ -507,6 +572,40 @@ def test_fused_bodies_never_wait_for_the_device(name):
     """The fused and detect-only programs (and the NMS rounds in them) are
     enqueued whole; the caller reads their output once."""
     source = inspect.getsource(_fused_bodies()[name])
+    code = "\n".join(line.split("#")[0] for line in source.splitlines())
+    found = [call for call in SYNCING_CALLS if call in code]
+    assert not found, f"{name} calls {found}"
+
+
+def _parallel_bodies():
+    from pyannote_video_tpu_torch.parallel import sharding
+
+    return {
+        "sharding._AllReduce.forward": sharding._AllReduce.forward,
+        "sharding._AllReduce.backward": sharding._AllReduce.backward,
+        "sharding._AllGather.forward": sharding._AllGather.forward,
+        "sharding._AllGather.backward": sharding._AllGather.backward,
+        "sharding.psum": sharding.psum,
+        "sharding.all_gather": sharding.all_gather,
+        "sharding._full": sharding._full,
+        "sharding.sharded_embed_fn": sharding.sharded_embed_fn,
+        "sharding.metric_loss": sharding.metric_loss,
+        "sharding.loss_fn": sharding.loss_fn,
+        "sharding.make_train_step": sharding.make_train_step,
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "sharding._AllReduce.forward", "sharding._AllReduce.backward",
+    "sharding._AllGather.forward", "sharding._AllGather.backward",
+    "sharding.psum", "sharding.all_gather", "sharding._full",
+    "sharding.sharded_embed_fn", "sharding.metric_loss", "sharding.loss_fn",
+    "sharding.make_train_step"])
+def test_sharded_steps_never_wait_for_the_device(name):
+    """The sharded forward and train step (its ``step`` closure included)
+    and their collectives are enqueued whole: the loss stays on the
+    device."""
+    source = inspect.getsource(_parallel_bodies()[name])
     code = "\n".join(line.split("#")[0] for line in source.splitlines())
     found = [call for call in SYNCING_CALLS if call in code]
     assert not found, f"{name} calls {found}"
